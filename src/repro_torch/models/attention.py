@@ -1,0 +1,186 @@
+"""GQA attention: full-sequence (direct or KV-chunked) and one-token decode.
+
+PyTorch counterparts of the JAX package's ``models/attention.py``. With
+``use_kernels`` the attention core goes to the CUDA kernels of
+``repro_torch.kernels`` (their plain versions on CPU tensors). The decode
+path writes the new token's K/V into the ring-buffer cache in place,
+which saves a copy of the cache per layer and step; it returns the same
+cache tensors it was given.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import common
+
+NEG_INF = -2.0e38  # large-but-finite; avoids NaNs from (-inf) - (-inf)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+
+    @property
+    def q_groups(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+
+def dims_of(cfg) -> AttnDims:
+    return AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+
+
+# ------------------------------------------------------------------ params
+def init_attention(gen, cfg, d_model: int | None = None):
+    """Weights in the JAX package's ``(in, out)`` layout: ``x @ w``."""
+    d = d_model or cfg.d_model
+    a = dims_of(cfg)
+    dt = common.dtype_of(cfg)
+    p = {
+        "wq": common.dense_param(gen, (d, a.num_heads * a.head_dim), dt),
+        "wk": common.dense_param(gen, (d, a.num_kv_heads * a.head_dim), dt),
+        "wv": common.dense_param(gen, (d, a.num_kv_heads * a.head_dim), dt),
+        "wo": common.dense_param(gen, (a.num_heads * a.head_dim, d), dt),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", a.num_heads), ("bk", a.num_kv_heads),
+                            ("bv", a.num_kv_heads)):
+            p[name] = torch.zeros((width * a.head_dim,), dtype=dt,
+                                  device=gen.device)
+    return p
+
+
+def project_qkv(cfg, p, x):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd)."""
+    a = dims_of(cfg)
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, a.num_heads, a.head_dim)
+    k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
+    v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
+    return q, k, v
+
+
+# ------------------------------------------------------------------ core SDPA
+def _direct_attention(q, k, v, bias):
+    """q: (B,S,K,G,hd); k,v: (B,T,K,hd); bias: broadcastable (B,1,1,S,T).
+
+    f32 scores (the bf16 products are exact in f32), f32 softmax, then p
+    cast to ``v.dtype`` before the PV product, as the reference does."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    s = s * scale + bias
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+
+
+def _chunked_attention(q, k, v, q_pos, k_pos, causal, window, chunk):
+    """Flash-style online-softmax attention over KV chunks, f32 throughout.
+
+    q: (B,S,K,G,hd); k/v: (B,T,K,hd); q_pos: (S,), k_pos: (T,).
+    """
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float() * scale
+    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, S, hd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, T, chunk):
+        k_i, v_i = k[:, c0:c0 + chunk].float(), v[:, c0:c0 + chunk].float()
+        kp_i = k_pos[c0:c0 + chunk]
+        s = torch.einsum("bskgd,bckd->bkgsc", qf, k_i)
+        ok = torch.ones((S, kp_i.shape[0]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kp_i[None, :] <= q_pos[:, None]
+        if window:
+            ok &= kp_i[None, :] > (q_pos[:, None] - window)
+        s = s.masked_fill(~ok, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgsc,bckd->bkgsd", p, v_i)
+        m = m_new
+    o = acc / torch.clamp(l[..., None], min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B,S,K,G,hd)
+
+
+def self_attention(cfg, p, x, positions, *, causal=True, window=0,
+                   attn_chunk=2048, use_kernels=False, return_kv=False):
+    """Full-sequence self attention. x: (B,S,d) -> (B,S,d)."""
+    a = dims_of(cfg)
+    B, S, _ = x.shape
+    q, k, v = project_qkv(cfg, p, x)
+    if cfg.pos_emb == "rope":
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    qg = q.reshape(B, S, a.num_kv_heads, a.q_groups, a.head_dim)
+    if use_kernels:
+        o = fa.flash_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window)
+    elif S <= max(attn_chunk, 2048) or S % attn_chunk != 0:
+        bias = 0.0
+        if causal or window:
+            bias = common.causal_mask_bias(positions, positions,
+                                           window if window else 0)
+            bias = torch.clamp(bias, min=NEG_INF)[None, None, None]
+        o = _direct_attention(qg, k, v, bias).to(x.dtype)
+    else:
+        o = _chunked_attention(qg, k, v, positions, positions, causal,
+                               window, attn_chunk)
+    o = o.reshape(B, S, a.num_heads * a.head_dim)
+    out = o @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ------------------------------------------------------------------ decode
+def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
+                          use_kernels=False):
+    """One-token decode. x: (B,1,d); cache_k/v: (B,T,K,hd) ring buffers.
+
+    ``pos`` is the absolute position of the new token (a Python int). Keys
+    are stored rope-applied at absolute positions, so ring-buffer reuse is
+    correct without rope recomputation. The new K/V go into slot
+    ``pos % T`` in place. Returns (out, cache_k, cache_v).
+    """
+    a = dims_of(cfg)
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    pos = int(pos)
+    q, k, v = project_qkv(cfg, p, x)  # (B,1,H,hd), (B,1,K,hd)
+    if cfg.pos_emb == "rope":
+        ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = common.apply_rope(q, ppos, cfg.rope_theta)
+        k = common.apply_rope(k, ppos, cfg.rope_theta)
+    slot = pos % T
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, 1, a.num_kv_heads, a.q_groups, a.head_dim)
+    if pos >= T:
+        valid = torch.ones((T,), dtype=torch.bool, device=x.device)
+    else:
+        valid = torch.arange(T, device=x.device) <= pos
+    # quantized caches (e.g. fp8) are converted after the read
+    kr = cache_k if cache_k.dtype == x.dtype else cache_k.to(x.dtype)
+    vr = cache_v if cache_v.dtype == x.dtype else cache_v.to(x.dtype)
+    if use_kernels:
+        o = da.decode_attention(qg.contiguous(), kr, vr, valid)
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        bias = torch.where(valid, zero, NEG_INF)[None, None, None, None, :]
+        o = _direct_attention(qg, kr, vr, bias).to(x.dtype)
+    o = o.reshape(B, 1, a.num_heads * a.head_dim)
+    return o @ p["wo"], cache_k, cache_v

@@ -1,0 +1,195 @@
+"""Layer-stack machinery: the per-layer block kinds and the loops over them.
+
+The JAX package factors the layer kinds into an unrolled prefix plus a
+``lax.scan`` over stacked periods; the port keeps one parameter dict per
+layer in ``params["layers"]`` and loops over them. ``stack_pattern`` is
+kept (pure Python) because the weight bridge unstacks the JAX periods by
+it. A BlockKind is the static tuple ``(mixer, ffn, d_ff)`` with mixer in
+{'attn','ssm'}, ffn in {'dense','moe','none'}.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention, common, ffn as ffn_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class CallOpts:
+    """Runtime (non-architecture) options for a model call.
+
+    The same fields and defaults as the JAX package's ``CallOpts``. The
+    sharding hints (``logits_spec``, ``act_spec``, ``attn_seq_shard``) and
+    ``remat`` have no effect on one device and are carried for parity."""
+    use_kernels: bool = False
+    attn_chunk: int = 4096
+    capacity_factor: float = 1.25
+    window: int = 0  # sliding-window override for self-attention (0 = full)
+    remat: bool = False
+    logits_spec: tuple = None
+    act_spec: tuple = None
+    cache_dtype: str = "bfloat16"
+    attn_seq_shard: tuple = None
+    moe_single_group_decode: bool = False
+
+
+_LATER = {"ssm": "models/ssm.py and the ssd_chunk_scan kernel",
+          "moe": "the MoE layer and the gmm/expert_ffn kernel"}
+
+
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(f"{kind!r} blocks are not ported yet; they "
+                               f"arrive with the port of {_LATER[kind]}")
+
+
+# ------------------------------------------------------------------ pattern
+def layer_kinds(cfg):
+    kinds = []
+    for i in range(cfg.num_layers):
+        mixer = cfg.layer_kind(i)
+        if mixer == "ssm" and cfg.family == "ssm":
+            kinds.append((mixer, "none", 0))
+            continue
+        f = cfg.ffn_kind(i)
+        dff = cfg.d_ff
+        if (f == "dense" and cfg.moe is not None
+                and i < cfg.moe.first_dense and cfg.moe.d_ff_dense):
+            dff = cfg.moe.d_ff_dense
+        kinds.append((mixer, f, dff))
+    return kinds
+
+
+def stack_pattern(cfg):
+    """-> (prefix_kinds, period_kinds, n_periods), as the JAX package."""
+    kinds = layer_kinds(cfg)
+    L = len(kinds)
+    best = None  # (period_len, prefix_len, prefix, period, n)
+    for prefix in range(0, min(L, 4)):
+        rest = kinds[prefix:]
+        n = len(rest)
+        if n == 0:
+            continue
+        for p in range(1, n + 1):
+            if n % p == 0 and rest == rest[:p] * (n // p):
+                cand = (p, prefix, tuple(kinds[:prefix]), tuple(rest[:p]), n // p)
+                if best is None or (cand[0], cand[1]) < (best[0], best[1]):
+                    best = cand
+                break  # smallest period for this prefix
+    _, _, prefix_kinds, period_kinds, n_periods = best
+    return prefix_kinds, period_kinds, n_periods
+
+
+# ------------------------------------------------------------------ init
+def init_block(gen, cfg, kind):
+    mixer, f, dff = kind
+    p = {"ln1": common.init_norm(cfg, cfg.d_model, gen.device)}
+    if mixer != "attn":
+        raise _unported(mixer)
+    p["attn"] = attention.init_attention(gen, cfg)
+    if f == "moe":
+        raise _unported(f)
+    if f == "dense":
+        p["ln2"] = common.init_norm(cfg, cfg.d_model, gen.device)
+        p["ffn"] = ffn_mod.init_dense_ffn(gen, cfg, d_ff=dff)
+    return p
+
+
+def init_layers(gen, cfg):
+    return [init_block(gen, cfg, kind) for kind in layer_kinds(cfg)]
+
+
+# ------------------------------------------------------------------ cache
+def init_block_cache(cfg, kind, batch, kv_len, dtype, device):
+    if kind[0] != "attn":
+        raise _unported(kind[0])
+    a = attention.dims_of(cfg)
+    shape = (batch, kv_len, a.num_kv_heads, a.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_stack_cache(cfg, batch, kv_len, dtype, device):
+    return [init_block_cache(cfg, kind, batch, kv_len, dtype, device)
+            for kind in layer_kinds(cfg)]
+
+
+def _kv_into_ring(k, kv_len):
+    """Place full-prefill K (B,S,...) into a ring buffer of length kv_len."""
+    B, S = k.shape[:2]
+    if S <= kv_len:
+        buf = k.new_zeros((B, kv_len) + tuple(k.shape[2:]))
+        buf[:, :S] = k
+        return buf
+    tail = k[:, -kv_len:]
+    return torch.roll(tail, shifts=(S - kv_len) % kv_len, dims=1)
+
+
+# ------------------------------------------------------------------ apply
+def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
+                     kv_len: Optional[int] = None):
+    """Full-sequence block. Returns (h, aux_loss, cache_entry_or_None)."""
+    mixer, f, _ = kind
+    if mixer != "attn":
+        raise _unported(mixer)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    cache_entry = None
+    hn = common.apply_norm(cfg, p["ln1"], h)
+    o = attention.self_attention(
+        cfg, p["attn"], hn, positions, window=opts.window,
+        attn_chunk=opts.attn_chunk, use_kernels=opts.use_kernels,
+        return_kv=kv_len is not None)
+    if kv_len is not None:
+        o, (k, v) = o
+        cache_entry = {"k": _kv_into_ring(k, kv_len),
+                       "v": _kv_into_ring(v, kv_len)}
+    h = h + o
+    if f == "moe":
+        raise _unported(f)
+    if f == "dense":
+        h = h + ffn_mod.dense_ffn(cfg, p["ffn"],
+                                  common.apply_norm(cfg, p["ln2"], h))
+    return h, aux, cache_entry
+
+
+def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
+    """One-token decode block. Returns (h, cache_entry), the entry updated
+    in place."""
+    mixer, f, _ = kind
+    if mixer != "attn":
+        raise _unported(mixer)
+    hn = common.apply_norm(cfg, p["ln1"], h)
+    o, nk, nv = attention.decode_self_attention(
+        cfg, p["attn"], hn, cache_entry["k"], cache_entry["v"], pos,
+        window=opts.window, use_kernels=opts.use_kernels)
+    h = h + o
+    if f == "moe":
+        raise _unported(f)
+    if f == "dense":
+        h = h + ffn_mod.dense_ffn(cfg, p["ffn"],
+                                  common.apply_norm(cfg, p["ln2"], h))
+    return h, {"k": nk, "v": nv}
+
+
+# ------------------------------------------------------------------ stack
+def apply_stack(cfg, layers, h, positions, opts: CallOpts,
+                kv_len: Optional[int] = None):
+    """Full-sequence stack. Returns (h, aux_total, cache_or_None)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    cache = []
+    for kind, p in zip(layer_kinds(cfg), layers):
+        h, aux, ce = apply_block_full(cfg, kind, p, h, positions, opts, kv_len)
+        aux_total = aux_total + aux
+        cache.append(ce)
+    return h, aux_total, (cache if kv_len is not None else None)
+
+
+def decode_stack(cfg, layers, h, pos, cache, opts: CallOpts):
+    """One-token decode through the stack. Returns (h, new_cache)."""
+    new_cache = []
+    for kind, p, ce in zip(layer_kinds(cfg), layers, cache):
+        h, nce = apply_block_decode(cfg, kind, p, h, ce, pos, opts)
+        new_cache.append(nce)
+    return h, new_cache

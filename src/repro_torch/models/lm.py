@@ -1,0 +1,104 @@
+"""Decoder-only LM (the dense family of this slice of the port).
+
+PyTorch counterparts of the JAX package's ``models/lm.py``. Params are a
+dict: ``embed`` (V, d), ``layers`` (one dict per layer), ``ln_f`` and,
+where the config asks, ``unembed`` (d, V) and ``pos``. The VLM visual
+prefix is not ported yet (``models/api.py`` refuses VLM configs).
+
+The unembedding returns f32 logits, as the reference's bf16 x bf16 ->
+f32 einsum does. On the card it is one ``torch.mm(..., out_dtype=float32)``
+over the bf16 table (cuBLAS accumulates in f32 and writes f32), so no f32
+copy of the table is made. On the CPU both operands are widened to f32
+first. The products of two bf16 numbers are exact in f32 either way; the
+two paths differ only in the order of the f32 sums.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks, common
+from repro_torch.models.blocks import CallOpts
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda"):
+    """Random weights from ``seed``, in the reference's distributions,
+    made on ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = common.dtype_of(cfg)
+    p = {
+        "embed": common.embed_param(gen, (cfg.vocab_size, cfg.d_model), dt),
+        "layers": blocks.init_layers(gen, cfg),
+        "ln_f": common.init_norm(cfg, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = common.dense_param(gen, (cfg.d_model, cfg.vocab_size), dt)
+    if cfg.pos_emb == "learned":
+        p["pos"] = common.embed_param(gen, (cfg.max_learned_pos, cfg.d_model), dt)
+    return p
+
+
+def _embed(cfg, p, tokens, positions):
+    h = p["embed"][tokens.long()]
+    if cfg.name.startswith("gemma"):
+        h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)
+    if cfg.pos_emb == "learned":
+        # XLA clamps an out-of-range gather index, so the reference's
+        # positions past the table reuse its last row; clamp to match
+        h = h + p["pos"][positions.long().clamp(max=cfg.max_learned_pos - 1)]
+    return h
+
+
+def _unembed(cfg, p, h):
+    w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]   # (d, V)
+    B, S, d = h.shape
+    if h.device.type == "cuda" and h.dtype != torch.float32:
+        out = torch.mm(h.reshape(B * S, d), w, out_dtype=torch.float32)
+    else:
+        out = h.reshape(B * S, d).float() @ w.float()
+    return out.reshape(B, S, -1)
+
+
+def forward(params, cfg, tokens, *, opts: CallOpts = CallOpts()):
+    """Full-sequence logits. tokens: (B, S)."""
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    h = _embed(cfg, params, tokens, positions)
+    h, aux, _ = blocks.apply_stack(cfg, params["layers"], h, positions, opts)
+    h = common.apply_norm(cfg, params["ln_f"], h)
+    return _unembed(cfg, params, h), aux
+
+
+def prefill(params, cfg, tokens, kv_len: int, *, opts: CallOpts = CallOpts()):
+    """Prefill: returns (last-token logits (B,1,V), cache)."""
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    h = _embed(cfg, params, tokens, positions)
+    h, _, cache = blocks.apply_stack(cfg, params["layers"], h, positions,
+                                     opts, kv_len=kv_len)
+    h = common.apply_norm(cfg, params["ln_f"], h[:, -1:])
+    return _unembed(cfg, params, h), cache
+
+
+def decode_step(params, cfg, tokens, pos: int, cache, *,
+                opts: CallOpts = CallOpts()):
+    """One decode step. tokens: (B, 1); pos: absolute position (int).
+
+    Returns (logits (B,1,V), cache); the cache is updated in place.
+    """
+    h = params["embed"][tokens.long()]
+    if cfg.name.startswith("gemma"):
+        h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)
+    if cfg.pos_emb == "learned":
+        h = h + params["pos"][min(int(pos), cfg.max_learned_pos - 1)]
+    h, new_cache = blocks.decode_stack(cfg, params["layers"], h, pos, cache,
+                                       opts)
+    h = common.apply_norm(cfg, params["ln_f"], h)
+    return _unembed(cfg, params, h), new_cache
+
+
+def init_cache(cfg, batch, kv_len, dtype=torch.bfloat16, device="cuda"):
+    return blocks.init_stack_cache(cfg, batch, kv_len, dtype,
+                                   resolve_device(device))

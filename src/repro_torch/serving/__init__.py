@@ -1,0 +1,7 @@
+from repro_torch.serving.batcher import Batcher, InferenceRequest
+from repro_torch.serving.engine import PodEngine
+from repro_torch.serving.gateway import Gateway
+from repro_torch.serving.libhas import LibHas, MemoryBudgetExceeded
+
+__all__ = ["Batcher", "InferenceRequest", "PodEngine", "Gateway", "LibHas",
+           "MemoryBudgetExceeded"]

@@ -1,0 +1,416 @@
+"""The port's models against the JAX package, on the same weights.
+
+JAX params are made by the reference's own init, perturbed (nonzero biases
+and norm scales) with a seeded numpy generator, and carried into the port
+by ``params_from_jax``. Both packages then run the same numpy inputs.
+Tolerances, as max |port - jax| / max |jax|: 1e-4 in a float32 config,
+3e-2 in bfloat16 (the bf16 tolerance of tests/test_arch_smoke.py; the two
+frameworks round bf16 intermediates at different places).
+"""
+import dataclasses
+import functools
+import os
+import re
+import subprocess
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import models as jmodels
+from repro.configs import ARCHS as JARCHS, reduced as jreduced
+from repro.models import CallOpts as JCallOpts
+from repro.models import attention as jattn, common as jcommon
+from repro_torch import models as tmodels
+from repro_torch.configs import ARCHS as TARCHS, MoEConfig, reduced as treduced
+from repro_torch.models import CallOpts, attention as tattn, common as tcommon
+from repro_torch.weights import params_from_jax, to_torch
+
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def rel_err(got, want):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     np.float32)
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+def cfgs(arch, dtype):
+    return (dataclasses.replace(jreduced(JARCHS[arch]), dtype=dtype),
+            dataclasses.replace(treduced(TARCHS[arch]), dtype=dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def bridged(arch, dtype, seed=0, changes=()):
+    """(jax cfg, jax params, port cfg, port params) on the same weights;
+    shared between tests, which must not modify them. ``changes`` are
+    (field, value) pairs applied to both configs."""
+    jcfg, tcfg = (dataclasses.replace(c, **dict(changes))
+                  for c in cfgs(arch, dtype))
+    tree = jax.tree.map(np.asarray,
+                        jmodels.init_params(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        if path[-1].key in ("bq", "bk", "bv", "scale", "bias"):
+            noise = rng.standard_normal(a.shape).astype(np.float32) * 0.1
+            return (a.astype(np.float32) + noise).astype(a.dtype)
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(perturb, tree)
+    return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
+            params_from_jax(tree, tcfg))
+
+
+def both(a, dtype):
+    """A numpy array as (jax array, torch tensor) of the same values."""
+    j = jnp.asarray(a, dtype)
+    return j, to_torch(np.asarray(j))
+
+
+# ---------------------------------------------------------------------------
+# common
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm", "nonparametric_ln"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_norm(norm, dtype):
+    rng = np.random.default_rng(1)
+    cfg = types.SimpleNamespace(norm=norm)
+    xj, xt = both(rng.standard_normal((3, 5, 64)) * 3 + 1, dtype)
+    scale, bias = rng.standard_normal(64), rng.standard_normal(64)
+    pj = {"scale": jnp.asarray(scale, jnp.float32),
+          "bias": jnp.asarray(bias, jnp.float32)}
+    pt = {"scale": torch.tensor(scale, dtype=torch.float32),
+          "bias": torch.tensor(bias, dtype=torch.float32)}
+    got = tcommon.apply_norm(cfg, pt, xt)
+    want = jcommon.apply_norm(cfg, pj, xj)
+    assert got.dtype == xt.dtype
+    assert rel_err(got, want) < (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "gelu_plain"])
+def test_activation(name):
+    xj, xt = both(np.linspace(-6, 6, 301), "float32")
+    got = tcommon.activation(name)(xt)
+    assert rel_err(got, jcommon.activation(name)(xj)) < 1e-6
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rope_split_half(theta, dtype):
+    rng = np.random.default_rng(2)
+    xj, xt = both(rng.standard_normal((2, 9, 3, 64)), dtype)
+    pos = np.arange(9, dtype=np.int32) + 300
+    got = tcommon.apply_rope(xt, torch.from_numpy(pos), theta)
+    want = jcommon.apply_rope(xj, jnp.asarray(pos), theta)
+    assert rel_err(got, want) < (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_causal_mask_bias(window):
+    pos = np.arange(7, dtype=np.int32)
+    got = tcommon.causal_mask_bias(torch.from_numpy(pos), torch.from_numpy(pos),
+                                   window).numpy()
+    want = np.asarray(jcommon.causal_mask_bias(jnp.asarray(pos),
+                                               jnp.asarray(pos), window))
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _qkv(rng, dtype, B=2, S=24, K=2, G=3, hd=64):
+    return (both(rng.standard_normal((B, S, K, G, hd)), dtype),
+            both(rng.standard_normal((B, S, K, hd)), dtype),
+            both(rng.standard_normal((B, S, K, hd)), dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_direct_attention_casts_p_before_pv(dtype):
+    rng = np.random.default_rng(3)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, dtype)
+    pos = np.arange(24, dtype=np.int32)
+    bj = jnp.maximum(jcommon.causal_mask_bias(jnp.asarray(pos), jnp.asarray(pos)),
+                     jattn.NEG_INF)[None, None, None]
+    bt = torch.clamp(tcommon.causal_mask_bias(torch.from_numpy(pos),
+                                              torch.from_numpy(pos)),
+                     min=tattn.NEG_INF)[None, None, None]
+    got = tattn._direct_attention(qt, kt, vt, bt)
+    want = jattn._direct_attention(qj, kj, vj, bj)
+    assert got.dtype == vt.dtype
+    assert rel_err(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_chunked_attention(causal, window):
+    rng = np.random.default_rng(4)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, "float32")
+    pos = np.arange(24, dtype=np.int32)
+    got = tattn._chunked_attention(qt, kt, vt, torch.from_numpy(pos),
+                                   torch.from_numpy(pos), causal, window, 8)
+    want = jattn._chunked_attention(qj, kj, vj, jnp.asarray(pos),
+                                    jnp.asarray(pos), causal, window, 8)
+    assert rel_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_self_attention(arch, dtype, use_kernels):
+    jcfg, jp, tcfg, tp = bridged(arch, dtype)
+    rng = np.random.default_rng(5)
+    xj, xt = both(rng.standard_normal((2, 16, jcfg.d_model)), dtype)
+    pos = np.arange(16, dtype=np.int32)
+    jlayer = jax.tree.map(lambda a: a[0], jp["stack"]["periods"][0])
+    want, (wk, wv) = jattn.self_attention(
+        jcfg, jlayer["attn"], xj, jnp.asarray(pos), window=4,
+        use_kernels=use_kernels, return_kv=True)
+    got, (gk, gv) = tattn.self_attention(
+        tcfg, tp["layers"][0]["attn"], xt, torch.from_numpy(pos), window=4,
+        use_kernels=use_kernels, return_kv=True)
+    assert rel_err(got, want) < TOL[dtype]
+    assert rel_err(gk, wk) < TOL[dtype] and rel_err(gv, wv) < TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
+@pytest.mark.parametrize("pos", [5, 45])       # partly filled, ring wrapped
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_decode_self_attention(arch, pos, use_kernels):
+    jcfg, jp, tcfg, tp = bridged(arch, "float32")
+    rng = np.random.default_rng(6)
+    a = tattn.dims_of(tcfg)
+    T = 32
+    xj, xt = both(rng.standard_normal((2, 1, jcfg.d_model)), "float32")
+    kj, kt = both(rng.standard_normal((2, T, a.num_kv_heads, a.head_dim)), "float32")
+    vj, vt = both(rng.standard_normal((2, T, a.num_kv_heads, a.head_dim)), "float32")
+    jlayer = jax.tree.map(lambda x: x[1], jp["stack"]["periods"][0])
+    want, wk, wv = jattn.decode_self_attention(
+        jcfg, jlayer["attn"], xj, kj, vj, jnp.asarray(pos, jnp.int32),
+        use_kernels=use_kernels)
+    got, gk, gv = tattn.decode_self_attention(
+        tcfg, tp["layers"][1]["attn"], xt, kt, vt, pos,
+        use_kernels=use_kernels)
+    assert gk is kt and gv is vt               # ring slot written in place
+    assert rel_err(got, want) < TOL["float32"]
+    assert rel_err(gk, wk) < 1e-6 and rel_err(gv, wv) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# whole model: logits of forward / prefill / decode_step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_logits_match_jax(arch, dtype, use_kernels):
+    jcfg, jp, tcfg, tp = bridged(arch, dtype)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 19)).astype(np.int32)
+    jo, to = JCallOpts(use_kernels=use_kernels), CallOpts(use_kernels=use_kernels)
+    tt = torch.from_numpy(toks)
+
+    jforward = jax.jit(jmodels.forward, static_argnums=(1, 3))
+    jprefill = jax.jit(jmodels.prefill, static_argnums=(1, 3, 4))
+    jdecode = jax.jit(jmodels.decode_step, static_argnums=(1, 5))
+    want, _ = jforward(jp, jcfg, {"tokens": jnp.asarray(toks)}, jo)
+    got, _ = tmodels.forward(tp, tcfg, {"tokens": tt}, to)
+    assert got.dtype == torch.float32
+    assert rel_err(got, want) < TOL[dtype]
+
+    jl, jc = jprefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :16])}, 32, jo)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": tt[:, :16]}, 32, to)
+    assert tl.shape == (2, 1, jcfg.vocab_size)
+    assert rel_err(tl, jl) < TOL[dtype]
+    for i in range(16, 19):
+        jl, jc = jdecode(jp, jcfg, jnp.asarray(toks[:, i:i + 1]),
+                         jnp.asarray(i, jnp.int32), jc, jo)
+        tl, tc = tmodels.decode_step(tp, tcfg, tt[:, i:i + 1], i, tc, to)
+        assert rel_err(tl, jl) < TOL[dtype], f"decode at pos {i}"
+    jk = np.asarray(jc["periods"][0]["k"], np.float32)
+    for layer in range(tcfg.num_layers):
+        assert rel_err(tc[layer]["k"], jk[layer]) < TOL[dtype]
+
+
+def test_gemma_scale_and_learned_positions_match_jax():
+    """The embedding scale keyed on a gemma name and a learned position
+    table, with positions past its end (row 17 of 18 is reused: XLA
+    clamps the reference's gather, its decode clamps explicitly)."""
+    changes = (("name", "gemma-learned"), ("pos_emb", "learned"),
+               ("max_learned_pos", 18))
+    jcfg, jp, tcfg, tp = bridged("olmo-1b", "float32", changes=changes)
+    toks = np.random.default_rng(9).integers(
+        0, jcfg.vocab_size, size=(2, 20)).astype(np.int32)
+    tt = torch.from_numpy(toks)
+    want, _ = jmodels.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = tmodels.forward(tp, tcfg, {"tokens": tt})
+    assert rel_err(got, want) < TOL["float32"]
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :17])}, 32)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": tt[:, :17]}, 32)
+    assert rel_err(tl, jl) < TOL["float32"]
+    for i in (17, 18, 19):
+        jl, jc = jmodels.decode_step(jp, jcfg, jnp.asarray(toks[:, i:i + 1]),
+                                     jnp.asarray(i, jnp.int32), jc)
+        tl, tc = tmodels.decode_step(tp, tcfg, tt[:, i:i + 1], i, tc)
+        assert rel_err(tl, jl) < TOL["float32"], f"decode at pos {i}"
+
+
+def test_prefill_ring_roll_matches_jax():
+    """A prompt longer than the cache: the prefill KV lands in the ring with
+    the reference's roll, so decode continues at the right slots."""
+    jcfg, jp, tcfg, tp = bridged("qwen2.5-3b", "float32")
+    toks = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, size=(1, 21)).astype(np.int32)
+    opts = dict(window=8)
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :20])},
+                             8, JCallOpts(**opts))
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks[:, :20])},
+                             8, CallOpts(**opts))
+    assert rel_err(tc[0]["v"], np.asarray(jc["periods"][0]["v"])[0]) < 1e-6
+    jl, _ = jmodels.decode_step(jp, jcfg, jnp.asarray(toks[:, 20:]),
+                                jnp.asarray(20, jnp.int32), jc, JCallOpts(**opts))
+    tl, _ = tmodels.decode_step(tp, tcfg, torch.from_numpy(toks[:, 20:]), 20,
+                                tc, CallOpts(**opts))
+    assert rel_err(tl, jl) < TOL["float32"]
+
+
+# ---------------------------------------------------------------------------
+# twins of tests/test_arch_smoke.py on the port's own init
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
+def test_prefill_decode_consistency(arch):
+    cfg = treduced(TARCHS[arch])
+    params = tmodels.init_params(cfg, seed=2, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen)
+    full, _ = tmodels.forward(params, cfg, {"tokens": toks})
+    last, cache = tmodels.prefill(params, cfg, {"tokens": toks[:, :-1]}, 32)
+    ref = full[:, toks.shape[1] - 2]
+    err = float((last[:, 0] - ref).abs().max() / (ref.abs().max() + 1e-9))
+    assert err < 3e-2, f"prefill mismatch {err}"
+    dec, _ = tmodels.decode_step(params, cfg, toks[:, -1:], toks.shape[1] - 1,
+                                 cache)
+    ref2 = full[:, toks.shape[1] - 1]
+    err2 = float((dec[:, 0] - ref2).abs().max() / (ref2.abs().max() + 1e-9))
+    assert err2 < 3e-2, f"decode mismatch {err2}"
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_sliding_window_ring_buffer(use_kernels):
+    """Decode with a ring buffer (window < seq) matches windowed forward."""
+    cfg = treduced(TARCHS["qwen2.5-3b"])
+    W = 16
+    params = tmodels.init_params(cfg, seed=3, device="cpu")
+    total = 40
+    toks = torch.randint(0, cfg.vocab_size, (1, total),
+                         generator=torch.Generator().manual_seed(3))
+    opts = CallOpts(window=W, use_kernels=use_kernels)
+    full, _ = tmodels.forward(params, cfg, {"tokens": toks}, opts)
+    last, cache = tmodels.prefill(params, cfg, {"tokens": toks[:, :W]}, W, opts)
+    logits = None
+    for i in range(W, total):
+        logits, cache = tmodels.decode_step(params, cfg, toks[:, i:i + 1], i,
+                                            cache, opts=opts)
+    ref = full[:, -1]
+    err = float((logits[:, 0] - ref).abs().max() / (ref.abs().max() + 1e-9))
+    assert err < 3e-2, f"ring-buffer mismatch {err}"
+
+
+# ---------------------------------------------------------------------------
+# weight bridge, init, unported kinds
+# ---------------------------------------------------------------------------
+
+def test_params_from_jax_unstacks_periods_in_layer_order():
+    jcfg, jp, tcfg, tp = bridged("qwen2.5-3b", "bfloat16")
+    assert len(tp["layers"]) == tcfg.num_layers
+    wq = np.asarray(jp["stack"]["periods"][0]["attn"]["wq"], np.float32)
+    for i, layer in enumerate(tp["layers"]):
+        assert layer["attn"]["wq"].dtype == torch.bfloat16
+        # (in, out) layout kept: x @ wq
+        assert tuple(layer["attn"]["wq"].shape) == wq.shape[1:]
+        np.testing.assert_array_equal(layer["attn"]["wq"].float().numpy(), wq[i])
+    assert tp["ln_f"]["scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
+def test_init_params_distributions(arch):
+    """The port's own init: the reference's shapes, dtypes and scales."""
+    jcfg, tcfg = cfgs(arch, "bfloat16")
+    jp = jmodels.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = tmodels.init_params(tcfg, seed=0, device="cpu")
+    jwq = np.asarray(jp["stack"]["periods"][0]["attn"]["wq"][0], np.float32)
+    twq = tp["layers"][0]["attn"]["wq"].float().numpy()
+    assert twq.shape == jwq.shape
+    assert abs(twq.std() - jwq.std()) < 0.1 * jwq.std()
+    assert np.abs(twq).max() <= 2.0 / np.sqrt(jcfg.d_model) + 1e-2
+    emb = tp["embed"].float().numpy()
+    assert emb.shape == (jcfg.vocab_size, jcfg.d_model)
+    assert abs(emb.std() - 0.02) < 0.002
+
+
+def test_unported_kinds_raise():
+    cfg = treduced(TARCHS["qwen2.5-3b"])
+    with pytest.raises(NotImplementedError, match="ssm"):
+        tmodels.init_params(dataclasses.replace(cfg, family="ssm"),
+                            device="cpu")
+    moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(4, 2))
+    with pytest.raises(NotImplementedError, match="moe"):
+        tmodels.init_params(moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        tmodels.init_params(dataclasses.replace(cfg, is_encoder_decoder=True),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="VLM"):
+        tmodels.init_params(dataclasses.replace(cfg, num_visual_tokens=4),
+                            device="cpu")
+
+
+def test_missing_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmodels.init_params(treduced(TARCHS["olmo-1b"]))
+
+
+# ---------------------------------------------------------------------------
+# the port stands alone
+# ---------------------------------------------------------------------------
+
+def _port_modules():
+    base = os.path.join(ROOT, "src", "repro_torch")
+    for dirpath, _, files in os.walk(base):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f),
+                                      os.path.join(ROOT, "src"))
+                yield rel[:-3].replace(os.sep, ".").replace(".__init__", "")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {sorted(_port_modules())!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_port_sources_name_no_jax_or_repro_import():
+    pat = re.compile(r"^\s*(import jax|from jax[. ]|import repro[. ]|"
+                     r"import repro$|from repro[. ])", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    hits = [p for p in paths if pat.search(open(p).read())]
+    assert not hits
