@@ -5,25 +5,40 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Three phases; any failure raises and the exit code is non-zero.
+Four phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
-2. Kernels: builds every CUDA kernel of the serving path from
+2. Kernels: builds every CUDA kernel of the serving paths from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
    once), holds each against its plain PyTorch version on the card at the
    serving shapes (max |kernel - plain| / max |plain| <= 2e-2 in bf16,
-   <= 1e-4 in f32), and times the kernel, the plain version and one
-   PyTorch library call (``scaled_dot_product_attention``, a yardstick
-   the port never calls) with CUDA events.
-3. Serving: full-width qwen2.5-3b (random weights from ``--seed``, bf16)
+   <= 1e-4 in f32), and times the kernel, the plain version and, where
+   one exists, one PyTorch library call (``scaled_dot_product_attention``,
+   a yardstick the port never calls) with CUDA events. No single PyTorch
+   call computes the SSD scan, so ``ssd_chunk_scan`` has none.
+3. Serving qwen2.5-3b: full width (random weights from ``--seed``, bf16)
    behind ``Gateway`` -> ``PodEngine`` -> ``LibHas`` on an h100 vGPU pod
    (batch 8, sm 4): 16 requests at quota 0.3, then 16 at quota 0.9.
    Checks output lengths, finite logits, that every prefill and decode
-   step launched the kernels (launch counts reset just before and read
-   just after), and one batch's prefill logits against the same weights
-   with plain attention (max rel err <= 3e-2). Then torch.profiler sums
-   the device time of one prefill and one decode step, against the
+   step launched the attention kernels (launch counts reset just before
+   and read just after), and one batch's prefill logits against the same
+   weights with plain attention (max rel err <= 3e-2). Then torch.profiler
+   sums the device time of one prefill and one decode step, against the
    steps' median wall time (the device's idle share).
+4. Serving mamba2-2.7b: full width and depth, the same pod shape at quota
+   1.0, 16 requests in two batches of 8: prompts of 64-237 tokens (one
+   chunk of Q = 237, not a multiple of 16), then of 64-512 with one of 512
+   (two chunks of 256, so the carried state is used). Checks that each
+   prefill launched ``ssd_chunk_scan`` once a layer, and holds one batch's
+   prefill (B=8, L=512) through the kernel against the plain scan on the
+   same weights: each layer's SSM output on the same input in bf16
+   (<= 3e-2), and the logits of the whole 64-layer stack with the weights
+   widened to f32 (<= 1e-4). The bf16 logits of the two whole stacks are
+   printed beside the distance between two plain scans that differ only
+   in the order of their f32 sums (chunks of 256 and of 128): at 64 layers
+   both are set by bf16 roundings of each block's output that flip with
+   any change in the last bits, not by the kernel. Then the same profile
+   as phase 3.
 
 The line before the last is the kernels record as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +61,7 @@ PEAK_BW = 3.35e12    # H100 SXM HBM3 bytes/s
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SERVE_TOL = 3e-2     # prefill logits, kernels vs plain attention, bf16
 K, G, HD = 2, 8, 128  # qwen2.5-3b attention: 2 KV heads x 8 query heads
+NH, SG, SHD, SN = 80, 8, 64, 128  # mamba2-2.7b SSD: heads, groups, head_dim, state
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -89,12 +105,13 @@ def phase_device():
 
 
 def phase_kernels(seed):
-    """Build, check and time both kernels. Returns the record of each."""
+    """Build, check and time every kernel. Returns the record of each."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
 
     t0 = time.perf_counter()
     reports = build.build()
@@ -112,7 +129,8 @@ def phase_kernels(seed):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0,
+             "ssd_chunk_scan": 0.0}
     B = 8
     flash_cases = [("causal", 512, True, 0), ("causal_window64", 512, True, 64),
                    ("noncausal", 512, False, 0), ("ragged437", 437, True, 0)]
@@ -150,6 +168,45 @@ def phase_kernels(seed):
                                      f"rel err {rel} > {TOL[dname]}")
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"], diff)
+
+    def ssd_inputs(nc, Q, dtype, h0_scale):
+        """Chunked SSD inputs as the model makes them: x, B and C strided
+        views of one (B, S, channels) conv output, B and C by group."""
+        S = nc * Q
+        xbc = randn(B, S, NH * SHD + 2 * SG * SN, dtype=dtype)
+        xs, Bm, Cm = torch.split(xbc, [NH * SHD, SG * SN, SG * SN], dim=-1)
+        dt = torch.rand((B, S, NH), generator=gen, device="cuda") * 0.1 + 1e-3
+        dA = dt * -(torch.rand((NH,), generator=gen, device="cuda") * 15 + 1)
+
+        def chunked(t, *tail):
+            return t.reshape(B, nc, Q, *tail).transpose(0, 1)
+
+        return (chunked(xs, NH, SHD), chunked(Bm, SG, SN), chunked(Cm, SG, SN),
+                chunked(dt, NH), chunked(dA, NH),
+                randn(B, NH, SHD, SN, dtype=torch.float32) * h0_scale)
+
+    ssd_cases = [("serving_L512", 2, 256, 0.0), ("ragged_Q237", 1, 237, 0.0),
+                 ("nonzero_h0", 2, 256, 0.5)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for label, nc, Q, h0_scale in ssd_cases:
+            args = ssd_inputs(nc, Q, dtype, h0_scale)
+            final, y = ss.ssd_chunk_scan(*args)
+            want_final, want_y = ref.ssd_chunk_scan_ref(*args)
+            torch.cuda.synchronize()
+            for what, got, want in (("y", y, want_y),
+                                    ("state", final, want_final)):
+                diff, rel = errors(got, want)
+                print(f"[kernels] ssd_chunk_scan {dname} {label} nc={nc} "
+                      f"B={B} Q={Q} nh={NH} hd={SHD} N={SN} G={SG} {what}: "
+                      f"max abs err {diff:.3g}, max rel err {rel:.3g} "
+                      f"(tol {TOL[dname]})")
+                if not rel <= TOL[dname]:
+                    raise AssertionError(f"ssd_chunk_scan {dname} {label} "
+                                         f"{what}: rel err {rel} > {TOL[dname]}")
+                if dtype == torch.bfloat16:
+                    worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], diff)
+            del args, final, y, want_final, want_y
 
     def sdpa(q, k, v, **kw):
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
@@ -197,52 +254,75 @@ def phase_kernels(seed):
         "flops": 4 * HD * B * K * G * n_valid,
         "bytes": 2 * (2 * q.numel() + 2 * B * n_valid * K * HD) + T,
     }
-    for rec in (flash, decode):
+    nc, Q = 2, 256
+    args = ssd_inputs(nc, Q, bf, 0.0)
+    pairs = nc * B * NH * Q * (Q + 1) // 2           # causal (row, key) pairs
+    n_rows = nc * B * Q
+    ssd = {
+        "name": "ssd_chunk_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "shape": f"x ({nc},{B},{Q},{NH},{SHD}) bf16, B/C ({nc},{B},{Q},{SG},"
+                 f"{SN}) by group, dt/dA f32, h0 ({B},{NH},{SHD},{SN}) f32",
+        "max_abs_err": worst["ssd_chunk_scan"],
+        "ms": cuda_ms(lambda: ss.ssd_chunk_scan(*args), 20),
+        "plain_ms": cuda_ms(lambda: ref.ssd_chunk_scan_ref(*args), 5),
+        "library_ms": None,   # no single PyTorch call computes the scan
+        # C B^T and P x over the causal pairs, C h^T and the state update
+        # over every row
+        "flops": 2 * pairs * (SN + SHD) + 4 * n_rows * NH * SHD * SN,
+        # x, B, C (by group) bf16, dt, dA f32 in; y f32 out; state in and out
+        "bytes": (2 * n_rows * (NH * SHD + 2 * SG * SN) + 4 * 2 * n_rows * NH
+                  + 4 * n_rows * NH * SHD + 2 * 4 * B * NH * SHD * SN),
+    }
+    del args
+    for rec in (flash, decode, ssd):
         t_ops, t_bytes = rec["flops"] / PEAK_BF16, rec["bytes"] / PEAK_BW
         rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f} ms")
         print(f"[kernels] {rec['name']} at {rec['shape']}: kernel "
-              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})")
-    return [flash, decode]
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+              f"{rec['flops'] / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB)")
+    return [flash, decode, ssd]
 
 
-def phase_serving(seed):
-    """Serve 32 requests at full qwen2.5-3b width. Returns launch counts."""
-    import numpy as np
+def n_params(tree):
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(n_params(v) for v in tree)
+    return tree.numel()
+
+
+def serving_pod(cfg, fn_id, seed, quota):
+    """Random full-width weights from ``seed`` on the card, and a Gateway
+    with one PodEngine (batch 8 on 4 of 8 slices of an h100 vGPU,
+    ``max_seq`` 1024) whose steps record their wall time and whether their
+    logits are finite. Returns (gateway, engine, vgpu, record)."""
     import torch
     from repro_torch import models
-    from repro_torch.configs import ARCHS
     from repro_torch.configs.gpus import get_gpu_type
     from repro_torch.core.scheduler import HASGPUScheduler
     from repro_torch.core.vgpu import PodAlloc, VirtualGPU
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import CallOpts
-    from repro_torch.serving import Gateway, InferenceRequest, PodEngine
+    from repro_torch.serving import Gateway, PodEngine
 
-    cfg = ARCHS["qwen2.5-3b"]
     t0 = time.perf_counter()
     params = models.init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for layer in params["layers"]
-                   for part in layer.values() for t in part.values())
-    n_params += params["embed"].numel()
     print(f"[serving] {cfg.name}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {n_params / 1e9:.3f} B params ({cfg.dtype}), "
-          f"init {time.perf_counter() - t0:.1f} s")
-
-    vgpu = VirtualGPU("GPU-0", gpu_type=get_gpu_type("h100"))
-    sched = HASGPUScheduler()
-    gw = Gateway()
-    pod = PodAlloc(fn_id="fn-qwen", sm=4, quota=0.3, batch=8)
+          f"{cfg.d_model}, {n_params(params) / 1e9:.3f} B params "
+          f"({cfg.dtype}), init {time.perf_counter() - t0:.1f} s")
+    vgpu = VirtualGPU(f"GPU-{fn_id}", gpu_type=get_gpu_type("h100"))
+    pod = PodAlloc(fn_id=fn_id, sm=4, quota=quota, batch=8)
     vgpu.place(pod)
-    engine = PodEngine(cfg, pod, vgpu, sched, max_seq=1024, params=params)
-    gw.register("fn-qwen", engine)
-
-    times = {"prefill": [], "decode": []}
-    finite = []
+    engine = PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=1024,
+                       params=params)
+    gw = Gateway()
+    gw.register(fn_id, engine)
+    record = {"prefill": [], "decode": [], "finite": [], "prefill_len": []}
 
     def timed(fn, key):
         def run(*args):
@@ -250,44 +330,186 @@ def phase_serving(seed):
             t = time.perf_counter()
             logits, cache = fn(*args)
             torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t) * 1e3)
-            finite.append(torch.isfinite(logits).all())
+            record[key].append((time.perf_counter() - t) * 1e3)
+            record["finite"].append(torch.isfinite(logits).all())
+            if key == "prefill":
+                record["prefill_len"].append(args[1]["tokens"].shape[1])
             return logits, cache
         return run
 
     engine._prefill = timed(engine._prefill, "prefill")
     engine._decode = timed(engine._decode, "decode")
+    return gw, engine, vgpu, record
+
+
+def serve(gw, fn_id, cfg, prompts, max_new=32):
+    """Route one request per prompt, pump until all are served, check the
+    outputs. Returns the mean wall time per request in seconds."""
+    import numpy as np
+    from repro_torch.serving import InferenceRequest
+    t = time.perf_counter()
+    reqs = [InferenceRequest(prompt=p, max_new_tokens=max_new) for p in prompts]
+    for r in reqs:
+        gw.route(fn_id, r)
+    done = []
+    while len(done) < len(reqs):
+        done.extend(gw.pump(fn_id))
+    for r in done:
+        if r.output is None or len(r.output) != r.max_new_tokens:
+            raise AssertionError(f"request {r.req_id}: output "
+                                 f"{None if r.output is None else len(r.output)}"
+                                 f" tokens, want {r.max_new_tokens}")
+        if not ((r.output >= 0) & (r.output < cfg.vocab_size)).all():
+            raise AssertionError(f"request {r.req_id}: token out of range")
+    return (time.perf_counter() - t) / len(reqs)
+
+
+def check_finite(record):
+    import torch
+    if not bool(torch.stack(record["finite"]).all()):
+        raise AssertionError("non-finite logits on the serving path")
+
+
+def check_prefill_logits(params, cfg, toks):
+    """One batch's prefill logits through the kernels against plain
+    attention on the same weights (max rel err <= SERVE_TOL)."""
+    from repro_torch import models
+    from repro_torch.models import CallOpts
+    got, _ = models.prefill(params, cfg, {"tokens": toks}, 1024,
+                            CallOpts(use_kernels=True))
+    plain, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, CallOpts())
+    diff, rel = errors(got, plain)
+    B, L = toks.shape
+    print(f"[serving] {cfg.name} prefill logits B={B} L={L}, kernels vs "
+          f"plain attention: max abs err {diff:.3g}, max rel err {rel:.3g} "
+          f"(tol {SERVE_TOL})")
+    if not rel <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name} prefill logits rel err {rel} > "
+                             f"{SERVE_TOL}")
+
+
+def check_ssm_prefill(params, cfg, toks):
+    """mamba2's prefill through the SSD kernel against the plain scan on
+    the same weights (see the module docstring)."""
+    import dataclasses
+    import torch
+    from repro_torch import models
+    from repro_torch.models import CallOpts, blocks, common, lm, ssm
+
+    kern, plain = CallOpts(use_kernels=True), CallOpts()
+    batch = {"tokens": toks}
+    B, L = toks.shape
+    got, _ = models.prefill(params, cfg, batch, 1024, kern)
+    want, _ = models.prefill(params, cfg, batch, 1024, plain)
+    c128 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                            chunk_size=128))
+    other, _ = models.prefill(params, c128, batch, 1024, plain)
+    free, floor = errors(got, want)[1], errors(other, want)[1]
+    print(f"[serving] {cfg.name} prefill logits B={B} L={L} bf16, whole "
+          f"stacks: kernel vs plain scan max rel err {free:.3g}; plain scan "
+          f"in chunks of 128 vs of 256 {floor:.3g} (reported, not held)")
+
+    # layer by layer: each layer's SSM output on the plain stack's input,
+    # and the two stacks' hidden states as they drift apart with depth
+    pos = torch.arange(L, dtype=torch.int32, device=toks.device)
+    h = hk = lm._embed(cfg, params, toks, pos)
+    worst, drift = [], []
+    for i, (kind, p) in enumerate(zip(blocks.layer_kinds(cfg),
+                                      params["layers"])):
+        hn = common.apply_norm(cfg, p["ln1"], h)
+        worst.append(errors(ssm.ssd_forward(cfg, p["ssm"], hn, use_kernels=True),
+                            ssm.ssd_forward(cfg, p["ssm"], hn))[1])
+        h = blocks.apply_block_full(cfg, kind, p, h, pos, plain)[0]
+        hk = blocks.apply_block_full(cfg, kind, p, hk, pos, kern)[0]
+        if i + 1 in (1, 4, 16, 64):
+            drift.append(f"{i + 1}: {errors(hk, h)[1]:.3g}")
+    print(f"[serving] {cfg.name} each layer's SSM output on the plain "
+          f"stack's input, bf16, kernel vs plain scan: max rel err "
+          f"{max(worst):.3g}, median {statistics.median(worst):.3g} over "
+          f"{len(worst)} layers (tol {SERVE_TOL}); hidden state of the "
+          f"kernel stack vs the plain one after layer " + ", ".join(drift))
+    if not max(worst) <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name} SSM layer output rel err "
+                             f"{max(worst)} > {SERVE_TOL}")
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [widen(v) for v in tree]
+        return tree.float()
+
+    p32 = widen(params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    got, _ = models.prefill(p32, c32, batch, 1024, kern)
+    want, _ = models.prefill(p32, c32, batch, 1024, plain)
+    diff, rel = errors(got, want)
+    print(f"[serving] {cfg.name} prefill logits B={B} L={L}, weights widened "
+          f"to f32, whole stacks: kernel vs plain scan max abs err "
+          f"{diff:.3g}, max rel err {rel:.3g} (tol {TOL['float32']})")
+    if not rel <= TOL["float32"]:
+        raise AssertionError(f"{cfg.name} f32 prefill logits rel err {rel} > "
+                             f"{TOL['float32']}")
+
+
+def profile_steps(params, cfg, toks, record):
+    """Device busy time of one prefill and one decode step under
+    torch.profiler, against the steps' median wall time from the serving
+    run (the device's idle share)."""
+    from repro_torch import models
+    from repro_torch.models import CallOpts
+    opts = CallOpts(use_kernels=True)
+    L = toks.shape[1]
+    _, cache = models.prefill(params, cfg, {"tokens": toks}, 1024, opts)
+    tok = toks[:, -1:]
+    for key, fn in (
+            ("prefill", lambda: models.prefill(params, cfg, {"tokens": toks},
+                                               1024, opts)),
+            ("decode", lambda: models.decode_step(params, cfg, tok, L, cache,
+                                                  opts=opts))):
+        busy, top, ops = device_busy_ms(fn)
+        # the wall of the served prefills of this length, where there are any
+        same = [ms for ms, n in zip(record["prefill"], record["prefill_len"])
+                if n == L]
+        wall = statistics.median(same if key == "prefill" and same
+                                 else record[key])
+        if busy is None:
+            print(f"[profile] {cfg.name} {key}: device time not measured "
+                  f"({top})")
+            continue
+        print(f"[profile] {cfg.name} {key} step: device busy {busy:.2f} ms "
+              f"of {wall:.2f} ms median wall (idle share "
+              f"{1 - busy / wall:.3f}); top kernels: "
+              + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top))
+        print(f"[profile] {cfg.name} {key} step: top operators by their own "
+              f"device time: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in ops))
+
+
+def phase_serving(seed):
+    """Serve 32 requests at full qwen2.5-3b width. Returns launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = ARCHS["qwen2.5-3b"]
+    gw, engine, vgpu, record = serving_pod(cfg, "fn-qwen", seed, 0.3)
     rng = np.random.default_rng(seed)
 
-    def serve(n):
-        t = time.perf_counter()
-        reqs = [InferenceRequest(prompt=rng.integers(
-                    1, cfg.vocab_size, size=int(rng.integers(64, 513))
-                ).astype(np.int32), max_new_tokens=32) for _ in range(n)]
-        for r in reqs:
-            gw.route("fn-qwen", r)
-        done = []
-        while len(done) < n:
-            done.extend(gw.pump("fn-qwen"))
-        for r in done:
-            if r.output is None or len(r.output) != r.max_new_tokens:
-                raise AssertionError(f"request {r.req_id}: output "
-                                     f"{None if r.output is None else len(r.output)}"
-                                     f" tokens, want {r.max_new_tokens}")
-            if not ((r.output >= 0) & (r.output < cfg.vocab_size)).all():
-                raise AssertionError(f"request {r.req_id}: token out of range")
-        return (time.perf_counter() - t) / n, done
+    def prompts(n):
+        return [rng.integers(1, cfg.vocab_size, size=int(rng.integers(64, 513))
+                             ).astype(np.int32) for _ in range(n)]
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
     da.launches = 0
-    lat_low, _ = serve(16)
+    lat_low = serve(gw, "fn-qwen", cfg, prompts(16))
     engine.set_quota(vgpu, 0.9)
-    lat_high, _ = serve(16)
+    lat_high = serve(gw, "fn-qwen", cfg, prompts(16))
     launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
-    n_pre, n_dec = len(times["prefill"]), len(times["decode"])
-    if not bool(torch.stack(finite).all()):
-        raise AssertionError("non-finite logits on the serving path")
+    n_pre, n_dec = len(record["prefill"]), len(record["decode"])
+    check_finite(record)
     want = {"flash_attention": cfg.num_layers * n_pre,
             "decode_attention": cfg.num_layers * n_dec}
     if launches != want or not all(launches.values()):
@@ -299,49 +521,91 @@ def phase_serving(seed):
           f"0.3, {lat_high * 1e3:.1f} ms at quota 0.9 "
           f"({lat_low / lat_high:.2f}x)")
     print(f"[serving] prefill step ms (median of {n_pre}): "
-          f"{statistics.median(times['prefill']):.2f}; decode step ms "
-          f"(median of {n_dec}): {statistics.median(times['decode']):.2f}")
+          f"{statistics.median(record['prefill']):.2f}; decode step ms "
+          f"(median of {n_dec}): {statistics.median(record['decode']):.2f}")
     print(f"[serving] torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # one batch's prefill logits, kernels vs plain attention, same weights
-    L = 512
-    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, L)),
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
                            device="cuda")
-    got, _ = models.prefill(params, cfg, {"tokens": toks}, 1024,
-                            CallOpts(use_kernels=True))
-    plain, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, CallOpts())
-    diff, rel = errors(got, plain)
-    print(f"[serving] prefill logits B=8 L={L}, kernels vs plain attention: "
-          f"max abs err {diff:.3g}, max rel err {rel:.3g} (tol {SERVE_TOL})")
-    if not rel <= SERVE_TOL:
-        raise AssertionError(f"prefill logits rel err {rel} > {SERVE_TOL}")
+    check_prefill_logits(engine.params, cfg, toks)
+    profile_steps(engine.params, cfg, toks, record)
+    return launches
 
-    # where a step's time goes: device busy time under torch.profiler
-    # against the step's median wall time from the serving run above
-    opts = CallOpts(use_kernels=True)
-    _, cache = models.prefill(params, cfg, {"tokens": toks}, 1024, opts)
-    tok = toks[:, -1:]
-    for key, fn in (
-            ("prefill", lambda: models.prefill(params, cfg, {"tokens": toks},
-                                               1024, opts)),
-            ("decode", lambda: models.decode_step(params, cfg, tok, L, cache,
-                                                  opts=opts))):
-        busy, top = device_busy_ms(fn)
-        wall = statistics.median(times[key])
-        if busy is None:
-            print(f"[profile] {key}: device time not measured ({top})")
-            continue
-        print(f"[profile] {key} step: device busy {busy:.2f} ms of "
-              f"{wall:.2f} ms median wall (idle share {1 - busy / wall:.3f}); "
-              "top kernels: " + "; ".join(f"{n[:60]} {ms:.2f} ms"
-                                          for n, ms in top))
+
+def phase_serving_mamba2(seed):
+    """Serve 16 requests of full mamba2-2.7b in two batches: one chunk of
+    a ragged length, then two chunks. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    cfg = ARCHS["mamba2-2.7b"]
+    torch.cuda.empty_cache()
+    gw, engine, vgpu, record = serving_pod(cfg, "fn-mamba2", seed, 1.0)
+    rng = np.random.default_rng(seed + 1)
+    per_prefill = []
+    prefill = engine._prefill
+
+    def counted(*args):
+        before = ss.launches
+        out = prefill(*args)
+        per_prefill.append(ss.launches - before)
+        return out
+
+    engine._prefill = counted
+
+    def prompts(lo, hi, longest):
+        lengths = rng.integers(lo, hi + 1, size=8)
+        lengths[int(rng.integers(8))] = longest
+        return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in lengths]
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = da.launches = ss.launches = 0
+    # one chunk of Q = 237 (not a multiple of 16), then two chunks of 256
+    lat = [serve(gw, "fn-mamba2", cfg, prompts(64, 237, 237)),
+           serve(gw, "fn-mamba2", cfg, prompts(64, 512, 512))]
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches,
+                "ssd_chunk_scan": ss.launches}
+    n_pre, n_dec = len(record["prefill"]), len(record["decode"])
+    check_finite(record)
+    want = {"flash_attention": 0, "decode_attention": 0,
+            "ssd_chunk_scan": cfg.num_layers * n_pre}
+    if (launches != want or per_prefill != [cfg.num_layers] * n_pre
+            or record["prefill_len"] != [237, 512]):
+        raise AssertionError(f"kernel launches {launches} ({per_prefill} "
+                             f"per prefill at lengths "
+                             f"{record['prefill_len']}), want {want}")
+    print(f"[serving] {n_pre} prefills at lengths {record['prefill_len']}, "
+          f"{n_dec} decode steps; launches {launches}, ssd_chunk_scan "
+          f"{per_prefill} per prefill = {cfg.num_layers} layers")
+    print(f"[serving] per-request wall time at quota 1.0: "
+          + ", ".join(f"{t * 1e3:.1f} ms (batch {i + 1})"
+                      for i, t in enumerate(lat)))
+    print(f"[serving] prefill step ms: "
+          + ", ".join(f"{ms:.2f} (L={n})" for ms, n in
+                      zip(record["prefill"], record["prefill_len"]))
+          + f"; decode step ms (median of {n_dec}): "
+          f"{statistics.median(record['decode']):.2f}")
+    print(f"[serving] torch.cuda.max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
+                           device="cuda")
+    check_ssm_prefill(engine.params, cfg, toks)
+    profile_steps(engine.params, cfg, toks, record)
     return launches
 
 
 def device_busy_ms(fn):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
-    torch.profiler, the five kernels that took most), or (None, reason)."""
+    torch.profiler, the eight kernels that took most, the eight PyTorch
+    operators whose own kernels took most), or (None, reason, None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -357,12 +621,17 @@ def device_busy_ms(fn):
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3)
+        by_op = {e.key: getattr(e, "self_device_time_total", 0) / 1e3
+                 for e in prof.key_averages() if e.key.startswith("aten::")}
+        by_op = {k: ms for k, ms in by_op.items() if ms}
     except (RuntimeError, AttributeError) as err:
-        return None, f"profiler failed: {err}"
+        return None, f"profiler failed: {err}", None
     if not by_name:
-        return None, "the profiler recorded no CUDA kernels"
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()), top
+        return None, "the profiler recorded no CUDA kernels", None
+
+    def top(d):
+        return sorted(d.items(), key=lambda kv: -kv[1])[:8]
+    return sum(by_name.values()), top(by_name), top(by_op)
 
 
 def main(argv=None):
@@ -378,6 +647,8 @@ def main(argv=None):
     name, smi = phase_device()
     records = phase_kernels(args.seed)
     launches = phase_serving(args.seed)
+    launches["ssd_chunk_scan"] = phase_serving_mamba2(args.seed)[
+        "ssd_chunk_scan"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for rec in records:

@@ -6,9 +6,10 @@ from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig, ShapeConf
 from repro_torch.configs.gpus import (DEFAULT_GPU_TYPE, GPU_TYPES, GPUType,
                                       fleet_from_names, get_gpu_type)
 
-from repro_torch.configs import olmo_1b, qwen2p5_3b
+from repro_torch.configs import mamba2_2p7b, olmo_1b, qwen2p5_3b
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen2p5_3b, olmo_1b)}
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (qwen2p5_3b, olmo_1b, mamba2_2p7b)}
 
 
 def get_config(name: str) -> ArchConfig:

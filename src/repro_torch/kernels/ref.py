@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
 Same layouts and arithmetic as the JAX package's ``kernels/ref.py``:
 f32 scores and softmax, masked entries at -inf, output cast back to q's
-dtype. The kernel wrappers run these on CPU tensors.
+dtype; the SSD scan in f32, chunk by chunk. The kernel wrappers run these
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,3 +38,38 @@ def decode_attention_ref(q, k, v, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.to(q.dtype)
+
+
+def ssd_chunk_scan_ref(xc, Bc, Cc, dtc, dAc, h0):
+    """SSD chunked scan oracle.
+
+    xc: (nc, B, Q, nh, hd); Bc/Cc: (nc, B, Q, nh or G, N), a heads axis of
+    G groups repeated to nh heads (head h reads group h // (nh // G));
+    dtc/dAc: (nc, B, Q, nh); h0: (B, nh, hd, N) f32.
+    Returns (final_state, y (nc, B, Q, nh, hd) f32).
+    """
+    Q, nh = xc.shape[2], xc.shape[3]
+    if Bc.shape[3] != nh:
+        Bc = Bc.repeat_interleave(nh // Bc.shape[3], dim=3)
+        Cc = Cc.repeat_interleave(nh // Cc.shape[3], dim=3)
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    h = h0.float()
+    ys = []
+    for x_i, B_i, C_i, dt_i, dA_i in zip(xc.float(), Bc.float(), Cc.float(),
+                                         dtc.float(), dAc.float()):
+        cum = torch.cumsum(dA_i, dim=1)                        # (B,Q,nh)
+        total = cum[:, -1]                                     # (B,nh)
+        cb = torch.einsum("bihn,bjhn->bhij", C_i, B_i)         # (B,nh,Q,Q)
+        li = cum.transpose(1, 2)[:, :, :, None]
+        lj = cum.transpose(1, 2)[:, :, None, :]
+        # mask BEFORE exp: cum decreases, so li - lj > 0 above the diagonal
+        decay = torch.exp((li - lj).masked_fill(~tril, -1e30))
+        scores = cb * decay * dt_i.transpose(1, 2)[:, :, None, :]
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores, x_i)
+        y_inter = torch.einsum("bihn,bhpn->bihp",
+                               C_i * torch.exp(cum)[..., None], h)
+        w = dt_i * torch.exp(total[:, None, :] - cum)          # (B,Q,nh)
+        dstate = torch.einsum("bjhp,bjhn->bhpn", x_i * w[..., None], B_i)
+        h = torch.exp(total)[:, :, None, None] * h + dstate
+        ys.append(y_intra + y_inter)
+    return h, torch.stack(ys)

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import attention, common, ffn as ffn_mod
+from repro_torch.models import attention, common, ffn as ffn_mod, ssm as ssm_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +36,7 @@ class CallOpts:
     moe_single_group_decode: bool = False
 
 
-_LATER = {"ssm": "models/ssm.py and the ssd_chunk_scan kernel",
-          "moe": "the MoE layer and the gmm/expert_ffn kernel"}
+_LATER = {"moe": "the MoE layer and the gmm/expert_ffn kernel"}
 
 
 def _unported(kind: str) -> NotImplementedError:
@@ -86,9 +85,10 @@ def stack_pattern(cfg):
 def init_block(gen, cfg, kind):
     mixer, f, dff = kind
     p = {"ln1": common.init_norm(cfg, cfg.d_model, gen.device)}
-    if mixer != "attn":
-        raise _unported(mixer)
-    p["attn"] = attention.init_attention(gen, cfg)
+    if mixer == "attn":
+        p["attn"] = attention.init_attention(gen, cfg)
+    else:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg)
     if f == "moe":
         raise _unported(f)
     if f == "dense":
@@ -103,12 +103,17 @@ def init_layers(gen, cfg):
 
 # ------------------------------------------------------------------ cache
 def init_block_cache(cfg, kind, batch, kv_len, dtype, device):
-    if kind[0] != "attn":
-        raise _unported(kind[0])
-    a = attention.dims_of(cfg)
-    shape = (batch, kv_len, a.num_kv_heads, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind[0] == "attn":
+        a = attention.dims_of(cfg)
+        shape = (batch, kv_len, a.num_kv_heads, a.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    s = cfg.ssm
+    _, nh, conv_ch = ssm_mod.ssm_dims(cfg)
+    return {"conv": torch.zeros((batch, s.conv_width - 1, conv_ch),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, nh, s.head_dim, s.d_state),
+                                 dtype=torch.float32, device=device)}
 
 
 def init_stack_cache(cfg, batch, kv_len, dtype, device):
@@ -132,19 +137,25 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
                      kv_len: Optional[int] = None):
     """Full-sequence block. Returns (h, aux_loss, cache_entry_or_None)."""
     mixer, f, _ = kind
-    if mixer != "attn":
-        raise _unported(mixer)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache_entry = None
     hn = common.apply_norm(cfg, p["ln1"], h)
-    o = attention.self_attention(
-        cfg, p["attn"], hn, positions, window=opts.window,
-        attn_chunk=opts.attn_chunk, use_kernels=opts.use_kernels,
-        return_kv=kv_len is not None)
-    if kv_len is not None:
-        o, (k, v) = o
-        cache_entry = {"k": _kv_into_ring(k, kv_len),
-                       "v": _kv_into_ring(v, kv_len)}
+    if mixer == "attn":
+        o = attention.self_attention(
+            cfg, p["attn"], hn, positions, window=opts.window,
+            attn_chunk=opts.attn_chunk, use_kernels=opts.use_kernels,
+            return_kv=kv_len is not None)
+        if kv_len is not None:
+            o, (k, v) = o
+            cache_entry = {"k": _kv_into_ring(k, kv_len),
+                           "v": _kv_into_ring(v, kv_len)}
+    else:
+        o = ssm_mod.ssd_forward(cfg, p["ssm"], hn,
+                                return_state=kv_len is not None,
+                                use_kernels=opts.use_kernels)
+        if kv_len is not None:
+            o, (conv_tail, state) = o
+            cache_entry = {"conv": conv_tail, "state": state}
     h = h + o
     if f == "moe":
         raise _unported(f)
@@ -155,22 +166,27 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
 
 
 def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
-    """One-token decode block. Returns (h, cache_entry), the entry updated
-    in place."""
+    """One-token decode block. Returns (h, cache_entry): an attention entry
+    is updated in place, an SSM entry is replaced. ``pos`` is ignored by
+    SSM blocks."""
     mixer, f, _ = kind
-    if mixer != "attn":
-        raise _unported(mixer)
     hn = common.apply_norm(cfg, p["ln1"], h)
-    o, nk, nv = attention.decode_self_attention(
-        cfg, p["attn"], hn, cache_entry["k"], cache_entry["v"], pos,
-        window=opts.window, use_kernels=opts.use_kernels)
+    if mixer == "attn":
+        o, nk, nv = attention.decode_self_attention(
+            cfg, p["attn"], hn, cache_entry["k"], cache_entry["v"], pos,
+            window=opts.window, use_kernels=opts.use_kernels)
+        new_entry = {"k": nk, "v": nv}
+    else:
+        o, nconv, nstate = ssm_mod.ssd_decode_step(
+            cfg, p["ssm"], hn, cache_entry["conv"], cache_entry["state"])
+        new_entry = {"conv": nconv, "state": nstate}
     h = h + o
     if f == "moe":
         raise _unported(f)
     if f == "dense":
         h = h + ffn_mod.dense_ffn(cfg, p["ffn"],
                                   common.apply_norm(cfg, p["ln2"], h))
-    return h, {"k": nk, "v": nv}
+    return h, new_entry
 
 
 # ------------------------------------------------------------------ stack

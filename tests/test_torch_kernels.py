@@ -1,4 +1,4 @@
-"""The port's attention kernels against the JAX package.
+"""The port's kernels against the JAX package.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against the JAX oracles (``repro.kernels.ref``) and the Pallas kernels
@@ -16,6 +16,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.weights import to_torch
 
 # max |got - want| / max |want|: plain versions vs the JAX oracle (same f32
@@ -109,6 +111,73 @@ def test_decode_split_covers_cache(B, K, T):
     assert n_split * B * K >= min(tda.TARGET_BLOCKS, tiles * B * K)
 
 
+def _ssd_inputs(rng, nc, B, Q, nh, hd, N, G):
+    """Seeded f32 SSD inputs, as (jax arrays with B and C repeated to the
+    heads, torch tensors with B and C grouped), in the scales of
+    tests/test_kernels.py."""
+    def pair(a):
+        a = np.asarray(a, np.float32)
+        return jnp.asarray(a), torch.from_numpy(a)
+
+    x = rng.standard_normal((nc, B, Q, nh, hd)) * 0.2
+    Bg = rng.standard_normal((nc, B, Q, G, N)) * 0.2
+    Cg = rng.standard_normal((nc, B, Q, G, N)) * 0.2
+    dt = np.abs(rng.standard_normal((nc, B, Q, nh)) * 0.05)
+    dA = -np.abs(rng.standard_normal((nc, B, Q, nh)) * 0.1)
+    h0 = rng.standard_normal((B, nh, hd, N)) * 0.1
+    (xj, xt), (dtj, dtt), (dAj, dAt), (hj, ht) = map(pair, (x, dt, dA, h0))
+    (Bj, Bt), (Cj, Ct) = pair(Bg), pair(Cg)
+    Bj, Cj = (jnp.repeat(a, nh // G, axis=3) for a in (Bj, Cj))
+    return (xj, Bj, Cj, dtj, dAj, hj), (xt, Bt, Ct, dtt, dAt, ht)
+
+
+@pytest.mark.parametrize("nc,B,Q,nh,hd,N,G", [
+    (2, 1, 32, 2, 32, 16, 2),      # the sweep of tests/test_kernels.py
+    (4, 2, 64, 4, 64, 32, 4),
+    (8, 1, 16, 1, 64, 128, 1),
+    (2, 2, 32, 4, 32, 16, 2),      # B and C grouped: 2 heads a group
+    (1, 2, 37, 4, 16, 8, 1),       # one ragged chunk, one group
+])
+def test_ssd_plain_matches_jax(nc, B, Q, nh, hd, N, G):
+    """The plain scan (the wrapper on CPU tensors) against the JAX oracle
+    and the Pallas kernel in interpret mode, f32, tolerance 1e-4."""
+    rng = np.random.default_rng(nc * 1000 + Q + G)
+    jargs, targs = _ssd_inputs(rng, nc, B, Q, nh, hd, N, G)
+    before = tss.launches
+    final, y = tss.ssd_chunk_scan(*targs)
+    assert tss.launches == before           # CPU tensors: the plain version
+    assert y.shape == (nc, B, Q, nh, hd) and y.dtype == torch.float32
+    assert final.shape == (B, nh, hd, N) and final.dtype == torch.float32
+    want_final, want_y = jref.ssd_chunk_scan_ref(*jargs)
+    assert rel_err(y, want_y) < 1e-4
+    assert rel_err(final, want_final) < 1e-4
+    pallas_final, pallas_y = jops.ssd_chunk_scan(*jargs)
+    assert rel_err(y, pallas_y) < 1e-4
+    assert rel_err(final, pallas_final) < 1e-4
+
+
+def test_ssd_plain_grouped_equals_repeated():
+    """B and C by group give exactly what the repeated layout gives."""
+    rng = np.random.default_rng(11)
+    _, (x, Bg, Cg, dt, dA, h0) = _ssd_inputs(rng, 2, 2, 16, 6, 8, 4, 3)
+    got = tref.ssd_chunk_scan_ref(x, Bg, Cg, dt, dA, h0)
+    want = tref.ssd_chunk_scan_ref(x, Bg.repeat_interleave(2, dim=3),
+                                   Cg.repeat_interleave(2, dim=3), dt, dA, h0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_ssd_plain_masks_before_exp():
+    """A strongly decaying chunk: above the diagonal li - lj reaches +189,
+    where exp overflows, so the mask has to come before exp (a 0/1 mask
+    multiplied in after it would give inf * 0 = nan)."""
+    rng = np.random.default_rng(12)
+    _, (x, Bg, Cg, dt, _, h0) = _ssd_inputs(rng, 1, 1, 64, 2, 8, 4, 1)
+    dA = torch.full_like(dt, -3.0)           # cum reaches -192: exp(+192) = inf
+    final, y = tref.ssd_chunk_scan_ref(x, Bg, Cg, dt, dA, h0)
+    assert torch.isfinite(y).all() and torch.isfinite(final).all()
+
+
 def test_wrappers_reject_other_devices():
     """Only CPU tensors take the plain version; anything else that is not
     CUDA is refused (a CUDA tensor launches the kernel or raises)."""
@@ -119,3 +188,9 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tda.decode_attention(q[:, :1], kv, kv,
                              torch.ones(4, dtype=torch.bool, device="meta"))
+    x = torch.empty((1, 1, 8, 2, 32), device="meta")
+    bc = torch.empty((1, 1, 8, 1, 64), device="meta")
+    dt = torch.empty((1, 1, 8, 2), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.ssd_chunk_scan(x, bc, bc, dt, dt,
+                           torch.empty((1, 2, 32, 64), device="meta"))

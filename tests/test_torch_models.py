@@ -24,10 +24,11 @@ import torch
 from repro import models as jmodels
 from repro.configs import ARCHS as JARCHS, reduced as jreduced
 from repro.models import CallOpts as JCallOpts
-from repro.models import attention as jattn, common as jcommon
+from repro.models import attention as jattn, common as jcommon, ssm as jssm
 from repro_torch import models as tmodels
 from repro_torch.configs import ARCHS as TARCHS, MoEConfig, reduced as treduced
 from repro_torch.models import CallOpts, attention as tattn, common as tcommon
+from repro_torch.models import ssm as tssm
 from repro_torch.weights import params_from_jax, to_torch
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -47,18 +48,24 @@ def cfgs(arch, dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def bridged(arch, dtype, seed=0, changes=()):
+def bridged(arch, dtype, seed=0, changes=(), n_groups=None):
     """(jax cfg, jax params, port cfg, port params) on the same weights;
     shared between tests, which must not modify them. ``changes`` are
-    (field, value) pairs applied to both configs."""
+    (field, value) pairs applied to both configs; ``n_groups`` replaces
+    the SSM's B/C group count (``reduced`` sets 1, which would hide a
+    wrong head -> group mapping)."""
     jcfg, tcfg = (dataclasses.replace(c, **dict(changes))
                   for c in cfgs(arch, dtype))
+    if n_groups is not None:
+        jcfg, tcfg = (dataclasses.replace(c, ssm=dataclasses.replace(
+            c.ssm, n_groups=n_groups)) for c in (jcfg, tcfg))
     tree = jax.tree.map(np.asarray,
                         jmodels.init_params(jax.random.PRNGKey(seed), jcfg))
     rng = np.random.default_rng(seed)
 
     def perturb(path, a):
-        if path[-1].key in ("bq", "bk", "bv", "scale", "bias"):
+        if path[-1].key in ("bq", "bk", "bv", "scale", "bias", "conv_b",
+                            "dt_bias", "D", "norm_scale"):
             noise = rng.standard_normal(a.shape).astype(np.float32) * 0.1
             return (a.astype(np.float32) + noise).astype(a.dtype)
         return a
@@ -204,6 +211,92 @@ def test_decode_self_attention(arch, pos, use_kernels):
 
 
 # ---------------------------------------------------------------------------
+# ssm (reduced mamba2: chunk 64, conv width 4)
+# ---------------------------------------------------------------------------
+
+def _ssm_layer(jp, tp, i):
+    return (jax.tree.map(lambda a: a[i], jp["stack"]["periods"][0])["ssm"],
+            tp["layers"][i]["ssm"])
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+@pytest.mark.parametrize("S", [2, 40, 64, 128])   # S < W-1, <= chunk, 2 chunks
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ssd_forward_matches_jax(n_groups, S, use_kernels):
+    jcfg, jp, tcfg, tp = bridged("mamba2-2.7b", "float32", n_groups=n_groups)
+    jl, tl = _ssm_layer(jp, tp, 1)
+    rng = np.random.default_rng(S + n_groups)
+    xj, xt = both(rng.standard_normal((2, S, jcfg.d_model)), "float32")
+    want = jssm.ssd_forward(jcfg, jl, xj, use_kernels=use_kernels)
+    got = tssm.ssd_forward(tcfg, tl, xt, use_kernels=use_kernels)
+    assert got.shape == (2, S, jcfg.d_model) and got.dtype == torch.float32
+    assert rel_err(got, want) < TOL["float32"]
+    # with a carried-in state, returning the conv tail and the final state
+    _, nh, _ = tssm.ssm_dims(tcfg)
+    s = tcfg.ssm
+    h0j, h0t = both(rng.standard_normal((2, nh, s.head_dim, s.d_state)),
+                    "float32")
+    want, (wtail, wstate) = jssm.ssd_forward(
+        jcfg, jl, xj, initial_state=h0j, return_state=True,
+        use_kernels=use_kernels)
+    got, (gtail, gstate) = tssm.ssd_forward(
+        tcfg, tl, xt, initial_state=h0t, return_state=True,
+        use_kernels=use_kernels)
+    assert rel_err(got, want) < TOL["float32"]
+    assert gtail.shape == (2, s.conv_width - 1, tssm.ssm_dims(tcfg)[2])
+    assert rel_err(gtail, wtail) < 1e-6        # the pre-conv inputs
+    assert rel_err(gstate, wstate) < TOL["float32"]
+
+
+def test_ssm_init_cache_layout_and_decode_from_it():
+    """The reference's cache layout per SSM layer, {"conv": (B, W-1,
+    conv_ch) in the cache dtype, "state": (B, nh, hd, N) f32}, and a decode
+    step from the empty cache equal to the JAX one."""
+    jcfg, jp, tcfg, tp = bridged("mamba2-2.7b", "float32", n_groups=2)
+    want = jmodels.init_cache(jcfg, 2, 32, jnp.bfloat16)
+    got = tmodels.init_cache(tcfg, 2, 32, torch.bfloat16, device="cpu")
+    assert len(got) == tcfg.num_layers
+    for layer in got:
+        for key in ("conv", "state"):
+            w = want["periods"][0][key]
+            assert tuple(layer[key].shape) == w.shape[1:], key
+            assert str(layer[key].dtype).split(".")[1] == str(w.dtype), key
+    toks = np.array([[5], [7]], np.int32)
+    jl, _ = jmodels.decode_step(jp, jcfg, jnp.asarray(toks),
+                                jnp.asarray(0, jnp.int32), want)
+    tl, _ = tmodels.decode_step(tp, tcfg, torch.from_numpy(toks), 0, got)
+    assert rel_err(tl, jl) < TOL["float32"]
+
+
+def test_ssd_forward_refuses_ragged_chunks():
+    """S over the chunk and not a multiple of it is refused, as by the
+    reference."""
+    jcfg, jp, tcfg, tp = bridged("mamba2-2.7b", "float32")
+    x = torch.zeros((1, 65, tcfg.d_model))
+    with pytest.raises(AssertionError, match="not divisible"):
+        tssm.ssd_forward(tcfg, tp["layers"][0]["ssm"], x)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+def test_ssd_decode_step_matches_jax(n_groups):
+    jcfg, jp, tcfg, tp = bridged("mamba2-2.7b", "float32", n_groups=n_groups)
+    jl, tl = _ssm_layer(jp, tp, 0)
+    _, nh, conv_ch = tssm.ssm_dims(tcfg)
+    s = tcfg.ssm
+    rng = np.random.default_rng(20 + n_groups)
+    xj, xt = both(rng.standard_normal((3, 1, jcfg.d_model)), "float32")
+    cj, ct = both(rng.standard_normal((3, s.conv_width - 1, conv_ch)),
+                  "float32")
+    hj, ht = both(rng.standard_normal((3, nh, s.head_dim, s.d_state)),
+                  "float32")
+    want, wconv, wstate = jssm.ssd_decode_step(jcfg, jl, xj, cj, hj)
+    got, gconv, gstate = tssm.ssd_decode_step(tcfg, tl, xt, ct, ht)
+    assert rel_err(got, want) < TOL["float32"]
+    assert rel_err(gconv, wconv) < 1e-6
+    assert rel_err(gstate, wstate) < TOL["float32"]
+
+
+# ---------------------------------------------------------------------------
 # whole model: logits of forward / prefill / decode_step
 # ---------------------------------------------------------------------------
 
@@ -237,6 +330,37 @@ def test_logits_match_jax(arch, dtype, use_kernels):
     jk = np.asarray(jc["periods"][0]["k"], np.float32)
     for layer in range(tcfg.num_layers):
         assert rel_err(tc[layer]["k"], jk[layer]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ssm_logits_match_jax(n_groups, dtype, use_kernels):
+    """Reduced mamba2: forward, prefill of two chunks, three decode steps,
+    and the cache each leaves (pre-conv window and f32 state per layer)."""
+    jcfg, jp, tcfg, tp = bridged("mamba2-2.7b", dtype, n_groups=n_groups)
+    rng = np.random.default_rng(30 + n_groups)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 131)).astype(np.int32)
+    jo, to = JCallOpts(use_kernels=use_kernels), CallOpts(use_kernels=use_kernels)
+    tt = torch.from_numpy(toks)
+    want, _ = jmodels.forward(jp, jcfg, {"tokens": jnp.asarray(toks[:, :64])}, jo)
+    got, _ = tmodels.forward(tp, tcfg, {"tokens": tt[:, :64]}, to)
+    assert rel_err(got, want) < TOL[dtype]
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :128])},
+                             256, jo)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": tt[:, :128]}, 256, to)
+    assert rel_err(tl, jl) < TOL[dtype]
+    for i in range(128, 131):
+        jl, jc = jmodels.decode_step(jp, jcfg, jnp.asarray(toks[:, i:i + 1]),
+                                     jnp.asarray(i, jnp.int32), jc, jo)
+        tl, tc = tmodels.decode_step(tp, tcfg, tt[:, i:i + 1], i, tc, to)
+        assert rel_err(tl, jl) < TOL[dtype], f"decode at pos {i}"
+    for layer in range(tcfg.num_layers):
+        for key in ("conv", "state"):
+            want = np.asarray(jc["periods"][0][key][layer], np.float32)
+            assert tc[layer][key].shape == want.shape
+            assert rel_err(tc[layer][key], want) < TOL[dtype], (layer, key)
+    assert tc[0]["state"].dtype == torch.float32
 
 
 def test_gemma_scale_and_learned_positions_match_jax():
@@ -285,7 +409,7 @@ def test_prefill_ring_roll_matches_jax():
 # twins of tests/test_arch_smoke.py on the port's own init
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b", "mamba2-2.7b"])
 def test_prefill_decode_consistency(arch):
     cfg = treduced(TARCHS[arch])
     params = tmodels.init_params(cfg, seed=2, device="cpu")
@@ -356,11 +480,43 @@ def test_init_params_distributions(arch):
     assert abs(emb.std() - 0.02) < 0.002
 
 
+def test_params_from_jax_keeps_ssm_f32_leaves():
+    """mamba2's 64 (reduced: 2) one-layer periods unstack into layers; the
+    f32 leaves stay f32 and the bf16 ones bf16, with their values."""
+    jcfg, jp, tcfg, tp = bridged("mamba2-2.7b", "bfloat16")
+    assert len(tp["layers"]) == tcfg.num_layers
+    jssm_p = jp["stack"]["periods"][0]["ssm"]
+    for i, layer in enumerate(tp["layers"]):
+        assert set(layer) == {"ln1", "ssm"}          # ffn "none"
+        for key, leaf in layer["ssm"].items():
+            want = np.asarray(jssm_p[key][i])
+            f32 = key in ("A_log", "dt_bias", "D", "norm_scale")
+            assert leaf.dtype == (torch.float32 if f32 else torch.bfloat16), key
+            np.testing.assert_array_equal(leaf.float().numpy(),
+                                          want.astype(np.float32))
+
+
+def test_init_ssm_distributions():
+    """The port's own SSM init: the reference's shapes, dtypes and ranges."""
+    jcfg, tcfg = cfgs("mamba2-2.7b", "bfloat16")
+    jp = jax.tree.map(lambda a: a[0], jmodels.init_params(
+        jax.random.PRNGKey(0), jcfg)["stack"]["periods"][0]["ssm"])
+    tp = tmodels.init_params(tcfg, seed=0, device="cpu")["layers"][0]["ssm"]
+    assert set(tp) == set(jp)
+    for key, leaf in tp.items():
+        assert tuple(leaf.shape) == jp[key].shape, key
+        assert str(leaf.dtype).split(".")[1] == str(jp[key].dtype), key
+    a = torch.exp(tp["A_log"])
+    assert (a >= 1.0).all() and (a <= 16.0).all()
+    dt0 = torch.nn.functional.softplus(tp["dt_bias"])
+    assert (dt0 >= 1e-3 * 0.999).all() and (dt0 <= 1e-1 * 1.001).all()
+    for key in ("in_proj", "conv_w", "out_proj"):
+        t, j = tp[key].float().numpy(), np.asarray(jp[key], np.float32)
+        assert abs(t.std() - j.std()) < 0.1 * j.std(), key
+
+
 def test_unported_kinds_raise():
     cfg = treduced(TARCHS["qwen2.5-3b"])
-    with pytest.raises(NotImplementedError, match="ssm"):
-        tmodels.init_params(dataclasses.replace(cfg, family="ssm"),
-                            device="cpu")
     moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(4, 2))
     with pytest.raises(NotImplementedError, match="moe"):
         tmodels.init_params(moe, device="cpu")

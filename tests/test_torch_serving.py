@@ -347,3 +347,60 @@ def test_engine_greedy_tokens_match_jax_engine(use_kernels):
     assert eng.libhas.launches == jeng.libhas.launches == 1 + 6
     assert eng.libhas.tokens_acquired_s == pytest.approx(
         jeng.libhas.tokens_acquired_s)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ssm_engine_greedy_tokens_match_jax_engine(n_groups, use_kernels):
+    """Reduced mamba2, f32, bridged weights: the port's CPU engine emits the
+    JAX engine's greedy tokens for a one-chunk batch (longest prompt 12)
+    and a two-chunk batch (longest prompt 128 = 2 x chunk 64), and charges
+    the same token costs."""
+    import dataclasses
+    import jax
+    from repro import models as jmodels
+    from repro.configs import ARCHS as JARCHS, reduced as jreduced
+    from repro.core.scheduler import HASGPUScheduler as JScheduler
+    from repro.core.vgpu import PodAlloc as JPod, VirtualGPU as JVGPU
+    from repro.serving import InferenceRequest as JRequest, PodEngine as JEngine
+    from repro_torch.models import CallOpts
+    from repro_torch.weights import params_from_jax
+
+    def cfg_of(c):
+        c = dataclasses.replace(c, dtype="float32")
+        return dataclasses.replace(c, ssm=dataclasses.replace(
+            c.ssm, n_groups=n_groups))
+
+    jcfg = cfg_of(jreduced(JARCHS["mamba2-2.7b"]))
+    cfg = cfg_of(reduced(ARCHS["mamba2-2.7b"]))
+    jparams = jmodels.init_params(jax.random.PRNGKey(6), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    rng = np.random.default_rng(6 + n_groups)
+
+    uid = f"{n_groups}-{int(use_kernels)}"
+    jg = JVGPU(f"GPU-jax-ssm-{uid}")
+    jpod = JPod(fn_id="f", sm=8, quota=1.0, batch=3)
+    jg.place(jpod)
+    jeng = JEngine(jcfg, jpod, jg, JScheduler(), max_seq=256, params=jparams,
+                   pad_id=2)
+    g = VirtualGPU(f"GPU-torch-ssm-{uid}")
+    pod = PodAlloc(fn_id="f", sm=8, quota=1.0, batch=3)
+    g.place(pod)
+    eng = PodEngine(cfg, pod, g, HASGPUScheduler(), max_seq=256,
+                    params=params, opts=CallOpts(use_kernels=use_kernels),
+                    pad_id=2, device="cpu")
+    assert eng._cost(3 * 128) == pytest.approx(jeng._cost(3 * 128))
+    for lengths in ((7, 12, 3), (128, 70, 9)):
+        for n in lengths:
+            p = rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
+            jeng.submit(JRequest(prompt=p, max_new_tokens=5))
+            eng.submit(InferenceRequest(prompt=p, max_new_tokens=5))
+        want = [r.output for r in jeng.step()]
+        got = [r.output for r in eng.step()]
+        assert len(got) == len(want) == 3
+        for a, b in zip(got, want):
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+    assert eng.libhas.launches == jeng.libhas.launches == 2 * (1 + 5)
+    assert eng.libhas.tokens_acquired_s == pytest.approx(
+        jeng.libhas.tokens_acquired_s)
