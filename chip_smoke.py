@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Four phases; any failure raises and the exit code is non-zero.
+Five phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -13,9 +13,10 @@ Four phases; any failure raises and the exit code is non-zero.
    once), holds each against its plain PyTorch version on the card at the
    serving shapes (max |kernel - plain| / max |plain| <= 2e-2 in bf16,
    <= 1e-4 in f32), and times the kernel, the plain version and, where
-   one exists, one PyTorch library call (``scaled_dot_product_attention``,
-   a yardstick the port never calls) with CUDA events. No single PyTorch
-   call computes the SSD scan, so ``ssd_chunk_scan`` has none.
+   one exists, one PyTorch library call (``scaled_dot_product_attention``
+   for attention, ``torch.bmm`` for ``gmm``: yardsticks the port never
+   calls) with CUDA events. No single PyTorch call computes the SSD scan,
+   so ``ssd_chunk_scan`` has none.
 3. Serving qwen2.5-3b: full width (random weights from ``--seed``, bf16)
    behind ``Gateway`` -> ``PodEngine`` -> ``LibHas`` on an h100 vGPU pod
    (batch 8, sm 4): 16 requests at quota 0.3, then 16 at quota 0.9.
@@ -39,6 +40,31 @@ Four phases; any failure raises and the exit code is non-zero.
    both are set by bf16 roundings of each block's output that flip with
    any change in the last bits, not by the kernel. Then the same profile
    as phase 3.
+5. Serving deepseek-moe-16b: full width and depth (28 layers, 64 routed
+   experts of d_ff 1408, top-6, 2 shared; random bf16 weights from
+   ``--seed``), after the earlier phases' models are freed, the same pod
+   shape at quota 1.0, 16 requests in two batches of 8: prompts of 64-512
+   tokens with one of 512 (capacity 64 a group, 512 rows an expert), then
+   of 64-437 with one of 437 (capacity 56, a ragged 448 rows). Checks
+   that every prefill and decode step launched ``gmm`` 3 times a MoE
+   layer (81) and the attention kernels once a layer. Holds each MoE
+   layer's output, grouped matmul vs plain expert FFN on the same input,
+   in bf16 (<= 3e-2), and the forward logits of a full-width stack cut to
+   its first 4 layers (the dense one and 3 MoE) with fresh f32 weights
+   (<= 1e-4); prints, not held, the whole stack's bf16 logits beside the
+   number of (layer, token) pairs whose top-6 expert set differs between
+   the two stacks. Holds each MoE layer of a single-group decode step
+   (capacity 2: tokens past an expert's second are dropped) against the
+   plain path in bf16 (<= 3e-2), and prints the whole step's logits.
+   Measures each step's footprint (``measure_footprint``) and checks that
+   ``LibHas`` refuses a budget one byte below it. Then the same profile.
+
+The kernels phase also holds ``gmm`` and ``expert_ffn`` against their
+plain versions at the prefill, decode and ragged shapes, for three pairs
+of types (x and w bf16; x f32 and w bf16, the serving path: the
+reference's one-hot dispatch promotes a bf16 model's tokens to f32; x
+and w f32, an f32 model), and both attention kernels at
+deepseek's 16 heads of 128 with one query head a KV head.
 
 The line before the last is the kernels record as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +72,7 @@ The line before the last is the kernels record as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -62,6 +89,7 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SERVE_TOL = 3e-2     # prefill logits, kernels vs plain attention, bf16
 K, G, HD = 2, 8, 128  # qwen2.5-3b attention: 2 KV heads x 8 query heads
 NH, SG, SHD, SN = 80, 8, 64, 128  # mamba2-2.7b SSD: heads, groups, head_dim, state
+ME, MD, MF = 64, 2048, 1408       # deepseek-moe-16b: experts, d_model, expert d_ff
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -111,6 +139,7 @@ def phase_kernels(seed):
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import ssd_scan as ss
 
     t0 = time.perf_counter()
@@ -130,7 +159,18 @@ def phase_kernels(seed):
                            dtype=torch.float32).to(dtype)
 
     worst = {"flash_attention": 0.0, "decode_attention": 0.0,
-             "ssd_chunk_scan": 0.0}
+             "ssd_chunk_scan": 0.0, "gmm": 0.0}
+
+    def hold(name, label, got, want, dname):
+        if not want.abs().max() > 0:   # an all-zero result agrees with itself
+            raise AssertionError(f"{name} {dname} {label}: plain result is 0")
+        diff, rel = errors(got, want)
+        print(f"[kernels] {name} {dname} {label}: max abs err {diff:.3g}, "
+              f"max rel err {rel:.3g} (tol {TOL[dname]})")
+        if not rel <= TOL[dname]:
+            raise AssertionError(f"{name} {dname} {label}: rel err {rel} > "
+                                 f"{TOL[dname]}")
+        return diff
     B = 8
     flash_cases = [("causal", 512, True, 0), ("causal_window64", 512, True, 64),
                    ("noncausal", 512, False, 0), ("ragged437", 437, True, 0)]
@@ -168,6 +208,23 @@ def phase_kernels(seed):
                                      f"rel err {rel} > {TOL[dname]}")
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"], diff)
+
+    # deepseek-moe-16b's attention: 16 KV heads of one query head each
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q = randn(B, 512, 16, 1, HD, dtype=dtype)
+        k, v = (randn(B, 512, 16, HD, dtype=dtype) for _ in range(2))
+        hold("flash_attention", "mha K=16 G=1 causal B=8 S=T=512",
+             fa.flash_attention(q, k, v, causal=True),
+             ref.flash_attention_ref(q, k, v, causal=True), dname)
+        T = 1024
+        valid = torch.arange(T, device="cuda") <= 600
+        q = randn(B, 1, 16, 1, HD, dtype=dtype)
+        k, v = (randn(B, T, 16, HD, dtype=dtype) for _ in range(2))
+        hold("decode_attention", "mha K=16 G=1 B=8 T=1024 pos600",
+             da.decode_attention(q, k, v, valid),
+             ref.decode_attention_ref(q, k, v, valid), dname)
+        del q, k, v
 
     def ssd_inputs(nc, Q, dtype, h0_scale):
         """Chunked SSD inputs as the model makes them: x, B and C strided
@@ -207,6 +264,38 @@ def phase_kernels(seed):
                 if dtype == torch.bfloat16:
                     worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], diff)
             del args, final, y, want_final, want_y
+
+    # gmm and expert_ffn at the MoE layer's shapes: (rows an expert, K, N)
+    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+             (torch.float32, torch.float32))
+    gmm_cases = [("prefill_gate_C512", 512, MD, MF),
+                 ("prefill_down_C512", 512, MF, MD),
+                 ("ragged_gate_C448", 448, MD, MF),
+                 ("decode_gate_C8", 8, MD, MF),
+                 ("decode_down_C8", 8, MF, MD),
+                 ("single_group_C2", 2, MD, MF)]
+    for xdt, wdt in pairs:
+        dname = str(xdt).split(".")[1]
+        tag = f"x {dname} w {str(wdt).split('.')[1]}"
+        for label, C, Kd, N in gmm_cases:
+            x = randn(ME, C, Kd, dtype=xdt)
+            w = (randn(ME, Kd, N, dtype=torch.float32) / Kd ** 0.5).to(wdt)
+            diff = hold("gmm", f"{tag} {label} ({ME},{C},{Kd})@({ME},{Kd},{N})",
+                        mg.gmm(x, w), ref.gmm_ref(x, w), dname)
+            if (xdt, wdt) == (torch.float32, torch.bfloat16):
+                worst["gmm"] = max(worst["gmm"], diff)
+        del x, w
+        wg, wu = ((randn(ME, MD, MF, dtype=torch.float32) / MD ** 0.5).to(wdt)
+                  for _ in range(2))
+        wd = (randn(ME, MF, MD, dtype=torch.float32) / MF ** 0.5).to(wdt)
+        for label, ng, C in (("prefill", 8, 64), ("ragged", 8, 56),
+                            ("decode", 8, 1), ("single_group", 1, 2)):
+            xe = randn(ng, ME, C, MD, dtype=xdt)
+            hold("expert_ffn", f"{tag} {label} xe ({ng},{ME},{C},{MD})",
+                 mg.expert_ffn(xe, wg, wu, wd), ref.expert_ffn_ref(
+                     xe, wg, wu, wd), dname)
+        del wg, wu, wd, xe
+        torch.cuda.synchronize()
 
     def sdpa(q, k, v, **kw):
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
@@ -276,7 +365,47 @@ def phase_kernels(seed):
                   + 4 * n_rows * NH * SHD + 2 * 4 * B * NH * SHD * SN),
     }
     del args
-    for rec in (flash, decode, ssd):
+    # gmm on the serving path: the bf16 model's f32 tokens (bf16 values)
+    # times bf16 weights, at the prefill's gate/up shape. No single PyTorch
+    # call takes the two types: the library time is torch.bmm in f32 on x
+    # and an f32 copy of w (the same values); bf16 x bf16, the down
+    # projection and the decode shape are printed beside it.
+    E, C = ME, 512
+    x = randn(E, C, MD, dtype=torch.bfloat16).float()
+    w = (randn(E, MD, MF, dtype=torch.float32) / MD ** 0.5).bfloat16()
+    w32 = w.float()
+    gmm_rec = {
+        "name": "gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:37",
+        "shape": f"x ({E},{C},{MD}) f32 @ w ({E},{MD},{MF}) bf16 -> f32",
+        "max_abs_err": worst["gmm"],
+        "ms": cuda_ms(lambda: mg.gmm(x, w), 20),
+        "plain_ms": cuda_ms(lambda: ref.gmm_ref(x, w), 5),
+        "library_ms": cuda_ms(lambda: torch.bmm(x, w32), 10),
+        "flops": 2 * E * C * MD * MF,
+        "bytes": 4 * E * C * MD + 2 * E * MD * MF + 4 * E * C * MF,
+    }
+    xb, x8 = x.bfloat16(), x[:, :8].contiguous()
+    xd = randn(E, C, MF, dtype=torch.bfloat16).float()
+    wd = (randn(E, MF, MD, dtype=torch.float32) / MF ** 0.5).bfloat16()
+    wd32 = wd.float()
+    more = [("bf16 x bf16 w, prefill gate C=512", 2 * E * C * MD * MF,
+             2 * (E * C * MD + E * MD * MF + E * C * MF),
+             lambda: mg.gmm(xb, w), lambda: torch.bmm(xb, w)),
+            ("f32 x bf16 w, prefill down C=512", 2 * E * C * MF * MD,
+             4 * E * C * MF + 2 * E * MF * MD + 4 * E * C * MD,
+             lambda: mg.gmm(xd, wd), lambda: torch.bmm(xd, wd32)),
+            ("f32 x bf16 w, decode gate C=8", 2 * E * 8 * MD * MF,
+             4 * E * 8 * MD + 2 * E * MD * MF + 4 * E * 8 * MF,
+             lambda: mg.gmm(x8, w), lambda: torch.bmm(x8, w32))]
+    for label, flops, nbytes, kern, lib in more:
+        bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+        print(f"[kernels] gmm {label}: kernel {cuda_ms(kern, 20):.4f} ms, "
+              f"torch.bmm {cuda_ms(lib, 10):.4f} ms, bound {bound:.4f} ms "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    del x, w, w32, xb, x8, xd, wd, wd32
+    for rec in (flash, decode, ssd, gmm_rec):
         t_ops, t_bytes = rec["flops"] / PEAK_BF16, rec["bytes"] / PEAK_BW
         rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -286,7 +415,7 @@ def phase_kernels(seed):
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
               f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
               f"{rec['flops'] / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB)")
-    return [flash, decode, ssd]
+    return [flash, decode, ssd, gmm_rec]
 
 
 def n_params(tree):
@@ -602,6 +731,268 @@ def phase_serving_mamba2(seed):
     return launches
 
 
+def moe_input(cfg, p, h, pos, opts):
+    """An attention + MoE block up to its MoE layer: (h after attention,
+    the MoE layer's input), as ``blocks.apply_block_full`` computes them."""
+    from repro_torch.models import attention, common
+    hn = common.apply_norm(cfg, p["ln1"], h)
+    h = h + attention.self_attention(cfg, p["attn"], hn, pos, window=opts.window,
+                                     attn_chunk=opts.attn_chunk,
+                                     use_kernels=opts.use_kernels)
+    return h, common.apply_norm(cfg, p["ln2"], h)
+
+
+def expert_sets(cfg, p, x):
+    """Each token's routed expert set (the top-k mask) at a MoE layer."""
+    import torch
+    from repro_torch.models import ffn
+    logits = torch.einsum("gtd,de->gte", x.float(), p["moe"]["router"])
+    return ffn._route(cfg, logits)[0] > 0
+
+
+def check_moe_prefill(params, cfg, toks):
+    """deepseek's prefill through the grouped matmul against the plain
+    expert FFN on the same weights (see the module docstring)."""
+    import torch
+    from repro_torch import models
+    from repro_torch.models import CallOpts, blocks, ffn, lm
+
+    kern, plain = CallOpts(use_kernels=True), CallOpts()
+    B, L = toks.shape
+    got, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, kern)
+    want, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, plain)
+    whole = errors(got, want)[1]
+    # layer by layer: each MoE layer on the plain stack's input, and the
+    # two stacks' routing as their hidden states drift apart
+    pos = torch.arange(L, dtype=torch.int32, device=toks.device)
+    h = hk = lm._embed(cfg, params, toks, pos)
+    worst, flips, pairs = [], 0, 0
+    for kind, p in zip(blocks.layer_kinds(cfg), params["layers"]):
+        if kind[1] != "moe":
+            h = blocks.apply_block_full(cfg, kind, p, h, pos, plain)[0]
+            hk = blocks.apply_block_full(cfg, kind, p, hk, pos, kern)[0]
+            continue
+        h, x = moe_input(cfg, p, h, pos, plain)
+        hk, xk = moe_input(cfg, p, hk, pos, kern)
+        y = ffn.moe_ffn(cfg, p["moe"], x)[0]
+        worst.append(errors(ffn.moe_ffn(cfg, p["moe"], x, use_kernels=True)[0],
+                            y)[1])
+        h = h + y
+        hk = hk + ffn.moe_ffn(cfg, p["moe"], xk, use_kernels=True)[0]
+        flips += int((expert_sets(cfg, p, x) != expert_sets(cfg, p, xk))
+                     .any(-1).sum())
+        pairs += B * L
+    print(f"[serving] {cfg.name} each MoE layer on the plain stack's input, "
+          f"bf16, gmm vs plain expert FFN: max rel err {max(worst):.3g}, "
+          f"median {statistics.median(worst):.3g} over {len(worst)} layers "
+          f"(tol {SERVE_TOL})")
+    print(f"[serving] {cfg.name} prefill logits B={B} L={L} bf16, whole "
+          f"stacks: gmm vs plain max rel err {whole:.3g} (reported, not "
+          f"held); (layer, token) pairs whose top-{cfg.moe.experts_per_token}"
+          f" expert set differs between the two stacks: {flips} of {pairs}")
+    if not max(worst) <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name} MoE layer output rel err "
+                             f"{max(worst)} > {SERVE_TOL}")
+
+
+def check_moe_f32(cfg, seed, toks):
+    """A full-width stack cut to its first 4 layers (one dense, three MoE)
+    with fresh f32 weights from ``seed``: forward logits through the
+    kernels against the plain versions (<= 1e-4)."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.models import CallOpts
+    c4 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    p4 = models.init_params(c4, seed=seed, device="cuda")
+    got, gaux = models.forward(p4, c4, {"tokens": toks},
+                               CallOpts(use_kernels=True))
+    want, waux = models.forward(p4, c4, {"tokens": toks}, CallOpts())
+    diff, rel = errors(got, want)
+    B, L = toks.shape
+    print(f"[serving] {cfg.name} cut to 4 layers, f32 weights, forward "
+          f"logits B={B} L={L}: kernels vs plain max abs err {diff:.3g}, "
+          f"max rel err {rel:.3g} (tol {TOL['float32']}); aux loss "
+          f"{float(gaux):.6f} vs {float(waux):.6f}")
+    if not rel <= TOL["float32"]:
+        raise AssertionError(f"{cfg.name} 4-layer f32 logits rel err {rel} > "
+                             f"{TOL['float32']}")
+
+
+def check_single_group_decode(params, cfg, toks, n_moe):
+    """Decode steps with ``moe_single_group_decode``: the batch is one
+    group with capacity 2, so tokens past an expert's second are dropped.
+    Holds each MoE layer on the plain stack's input, gmm vs plain, in bf16
+    (<= 3e-2), and counts the launches of a whole step through the
+    kernels; the whole step's logits against the plain path from the same
+    cache are printed, not held (routing flips, as in the prefill)."""
+    from repro_torch import models
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.models import CallOpts, attention, blocks, common, ffn
+    B, L = toks.shape
+    kern = CallOpts(use_kernels=True, moe_single_group_decode=True)
+    plain = CallOpts(moe_single_group_decode=True)
+    _, cache = models.prefill(params, cfg, {"tokens": toks}, 1024,
+                              CallOpts(use_kernels=True))
+    copies = [[{k: v.clone() for k, v in e.items()} for e in cache]
+              for _ in range(2)]
+    tok = toks[:, -1:]
+    before = mg.launches
+    got, _ = models.decode_step(params, cfg, tok, L, cache, opts=kern)
+    n = mg.launches - before
+    want, _ = models.decode_step(params, cfg, tok, L, copies[0], opts=plain)
+    whole = errors(got, want)[1]
+    # layer by layer on the plain stack, from a second copy of the cache
+    h = params["embed"][tok.long()]
+    worst, dropped = [], 0
+    C = ffn.capacity(cfg, B, 2.0)
+    for kind, p, e in zip(blocks.layer_kinds(cfg), params["layers"],
+                          copies[1]):
+        if kind[1] != "moe":
+            h = blocks.apply_block_decode(cfg, kind, p, h, e, L, plain)[0]
+            continue
+        o = attention.decode_self_attention(
+            cfg, p["attn"], common.apply_norm(cfg, p["ln1"], h), e["k"],
+            e["v"], L)[0]
+        h = h + o
+        x = common.apply_norm(cfg, p["ln2"], h)
+        y = ffn.moe_ffn(cfg, p["moe"], x, capacity_factor=2.0,
+                        single_group=True)[0]
+        worst.append(errors(ffn.moe_ffn(cfg, p["moe"], x, capacity_factor=2.0,
+                                        use_kernels=True,
+                                        single_group=True)[0], y)[1])
+        routed = expert_sets(cfg, p, x.reshape(1, B, -1)).sum(1)  # (1, E)
+        dropped += int((routed - C).clamp(min=0).sum())
+        h = h + y
+    print(f"[serving] {cfg.name} single-group decode B={B} (capacity {C} an "
+          f"expert; {dropped} of {B * cfg.moe.experts_per_token * len(worst)}"
+          f" routed (token, expert) pairs dropped over {len(worst)} MoE "
+          f"layers): each MoE layer on the plain stack's input, gmm vs "
+          f"plain, max rel err {max(worst):.3g} (tol {SERVE_TOL}); whole "
+          f"step's logits {whole:.3g} (reported, not held); gmm launches "
+          f"in a step {n}")
+    if not max(worst) <= SERVE_TOL or n != 3 * n_moe or not dropped:
+        raise AssertionError(f"{cfg.name} single-group decode: rel err "
+                             f"{max(worst)}, {n} gmm launches (want "
+                             f"{3 * n_moe}), {dropped} dropped")
+
+
+def check_footprints(engine, cfg, toks):
+    """Each step's footprint from the allocator around a warm-up call, and
+    LibHas refusing a budget one byte below it."""
+    from repro_torch.serving import LibHas, MemoryBudgetExceeded, measure_footprint
+    from repro_torch.serving.engine import compiled_steps
+    pre, dec = compiled_steps(cfg, engine.max_seq, engine.opts)
+    L = toks.shape[1]
+    fp_pre = measure_footprint(pre, engine.params, {"tokens": toks})
+    _, cache = pre(engine.params, {"tokens": toks})
+    fp_dec = measure_footprint(dec, engine.params, toks[:, -1:], L, cache)
+    for name, fp in (("prefill", fp_pre), ("decode", fp_dec)):
+        need = (fp.argument_size_in_bytes + fp.temp_size_in_bytes
+                + fp.output_size_in_bytes)
+        print(f"[serving] {cfg.name} {name} step footprint B={toks.shape[0]} "
+              f"L={L}: arguments {fp.argument_size_in_bytes / 2**30:.3f} GiB, "
+              f"temp {fp.temp_size_in_bytes / 2**30:.3f} GiB, outputs "
+              f"{fp.output_size_in_bytes / 2**30:.3f} GiB, need "
+              f"{need / 2**30:.3f} GiB")
+        LibHas(client=engine.libhas.client, hbm_budget_bytes=need).check_memory(fp)
+        try:
+            LibHas(client=engine.libhas.client,
+                   hbm_budget_bytes=need - 1).check_memory(fp)
+        except MemoryBudgetExceeded:
+            continue
+        raise AssertionError(f"LibHas took a {name} budget below its footprint")
+
+
+def phase_serving_deepseek(seed):
+    """Serve 16 requests of full deepseek-moe-16b in two batches: prompts
+    up to 512 (capacity 64) and up to 437 (capacity 56, 448 rows an
+    expert). Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import blocks
+
+    cfg = ARCHS["deepseek-moe-16b"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serving] before {cfg.name}: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    gw, engine, vgpu, record = serving_pod(cfg, "fn-deepseek", seed, 1.0)
+    n_moe = sum(f == "moe" for _, f, _ in blocks.layer_kinds(cfg))
+    rng = np.random.default_rng(seed + 2)
+    per_step = {"prefill": [], "decode": []}
+
+    def counted(fn, key):
+        def run(*args):
+            before = (mg.launches, fa.launches, da.launches)
+            out = fn(*args)
+            per_step[key].append((mg.launches - before[0],
+                                  fa.launches - before[1],
+                                  da.launches - before[2]))
+            return out
+        return run
+
+    engine._prefill = counted(engine._prefill, "prefill")
+    engine._decode = counted(engine._decode, "decode")
+
+    def prompts(lo, hi, longest):
+        lengths = rng.integers(lo, hi + 1, size=8)
+        lengths[int(rng.integers(8))] = longest
+        return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in lengths]
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = da.launches = ss.launches = mg.launches = 0
+    lat = [serve(gw, "fn-deepseek", cfg, prompts(64, 512, 512)),
+           serve(gw, "fn-deepseek", cfg, prompts(64, 437, 437))]
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches,
+                "ssd_chunk_scan": ss.launches, "gmm": mg.launches}
+    n_pre, n_dec = len(record["prefill"]), len(record["decode"])
+    check_finite(record)
+    L_ = cfg.num_layers
+    want = {"flash_attention": L_ * n_pre, "decode_attention": L_ * n_dec,
+            "ssd_chunk_scan": 0, "gmm": 3 * n_moe * (n_pre + n_dec)}
+    if (launches != want or record["prefill_len"] != [512, 437]
+            or set(per_step["prefill"]) != {(3 * n_moe, L_, 0)}
+            or set(per_step["decode"]) != {(3 * n_moe, 0, L_)}):
+        raise AssertionError(f"kernel launches {launches}, want {want}; per "
+                             f"step (gmm, flash, decode) "
+                             f"{sorted(set(per_step['prefill']))} a prefill "
+                             f"at lengths {record['prefill_len']}, "
+                             f"{sorted(set(per_step['decode']))} a decode")
+    print(f"[serving] {n_pre} prefills at lengths {record['prefill_len']}, "
+          f"{n_dec} decode steps; launches {launches}; every prefill and "
+          f"decode step launched gmm {3 * n_moe} times (3 x {n_moe} MoE "
+          f"layers) and its attention kernel {L_} times")
+    print(f"[serving] per-request wall time at quota 1.0: "
+          + ", ".join(f"{t * 1e3:.1f} ms (batch {i + 1})"
+                      for i, t in enumerate(lat)))
+    print(f"[serving] prefill step ms: "
+          + ", ".join(f"{ms:.2f} (L={n})" for ms, n in
+                      zip(record["prefill"], record["prefill_len"]))
+          + f"; decode step ms (median of {n_dec}): "
+          f"{statistics.median(record['decode']):.2f}")
+    print(f"[serving] torch.cuda.max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
+                           device="cuda")
+    check_moe_prefill(engine.params, cfg, toks)
+    check_single_group_decode(engine.params, cfg, toks, n_moe)
+    check_footprints(engine, cfg, toks)
+    profile_steps(engine.params, cfg, toks, record)
+    del gw, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_moe_f32(cfg, seed, toks)
+    return launches
+
+
 def device_busy_ms(fn):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
@@ -649,6 +1040,7 @@ def main(argv=None):
     launches = phase_serving(args.seed)
     launches["ssd_chunk_scan"] = phase_serving_mamba2(args.seed)[
         "ssd_chunk_scan"]
+    launches["gmm"] = phase_serving_deepseek(args.seed)["gmm"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for rec in records:

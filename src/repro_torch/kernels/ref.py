@@ -2,12 +2,13 @@
 
 Same layouts and arithmetic as the JAX package's ``kernels/ref.py``:
 f32 scores and softmax, masked entries at -inf, output cast back to q's
-dtype; the SSD scan in f32, chunk by chunk. The kernel wrappers run these
-on CPU tensors.
+dtype; the SSD scan in f32, chunk by chunk; the grouped matmul in f32,
+cast back to x's dtype. The kernel wrappers run these on CPU tensors.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0):
@@ -73,3 +74,24 @@ def ssd_chunk_scan_ref(xc, Bc, Cc, dtc, dAc, h0):
         h = torch.exp(total)[:, :, None, None] * h + dstate
         ys.append(y_intra + y_inter)
     return h, torch.stack(ys)
+
+
+def gmm_ref(x, w):
+    """Grouped matmul oracle: x (E,C,K) @ w (E,K,N) -> (E,C,N), f32 acc."""
+    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+
+
+def einsum(eq, a, b):
+    """``torch.einsum`` of two operands in their promoted dtype, as
+    ``jnp.einsum`` computes a bf16 x f32 product in f32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def expert_ffn_ref(xe, w_gate, w_up, w_down, act="silu"):
+    """xe: (G,E,C,d); weights (E,d,f)/(E,f,d) -> (G,E,C,d)."""
+    a = F.silu if act == "silu" else (
+        lambda t: F.gelu(t, approximate="tanh"))
+    h = a(einsum("gecd,edf->gecf", xe, w_gate)) \
+        * einsum("gecd,edf->gecf", xe, w_up)
+    return einsum("gecf,efd->gecd", h, w_down)

@@ -36,14 +36,6 @@ class CallOpts:
     moe_single_group_decode: bool = False
 
 
-_LATER = {"moe": "the MoE layer and the gmm/expert_ffn kernel"}
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"{kind!r} blocks are not ported yet; they "
-                               f"arrive with the port of {_LATER[kind]}")
-
-
 # ------------------------------------------------------------------ pattern
 def layer_kinds(cfg):
     kinds = []
@@ -89,11 +81,12 @@ def init_block(gen, cfg, kind):
         p["attn"] = attention.init_attention(gen, cfg)
     else:
         p["ssm"] = ssm_mod.init_ssm(gen, cfg)
-    if f == "moe":
-        raise _unported(f)
     if f == "dense":
         p["ln2"] = common.init_norm(cfg, cfg.d_model, gen.device)
         p["ffn"] = ffn_mod.init_dense_ffn(gen, cfg, d_ff=dff)
+    elif f == "moe":
+        p["ln2"] = common.init_norm(cfg, cfg.d_model, gen.device)
+        p["moe"] = ffn_mod.init_moe(gen, cfg)
     return p
 
 
@@ -157,11 +150,15 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
             o, (conv_tail, state) = o
             cache_entry = {"conv": conv_tail, "state": state}
     h = h + o
-    if f == "moe":
-        raise _unported(f)
     if f == "dense":
         h = h + ffn_mod.dense_ffn(cfg, p["ffn"],
                                   common.apply_norm(cfg, p["ln2"], h))
+    elif f == "moe":
+        y, aux = ffn_mod.moe_ffn(cfg, p["moe"],
+                                 common.apply_norm(cfg, p["ln2"], h),
+                                 capacity_factor=opts.capacity_factor,
+                                 use_kernels=opts.use_kernels)
+        h = h + y
     return h, aux, cache_entry
 
 
@@ -181,11 +178,17 @@ def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
             cfg, p["ssm"], hn, cache_entry["conv"], cache_entry["state"])
         new_entry = {"conv": nconv, "state": nstate}
     h = h + o
-    if f == "moe":
-        raise _unported(f)
     if f == "dense":
         h = h + ffn_mod.dense_ffn(cfg, p["ffn"],
                                   common.apply_norm(cfg, p["ln2"], h))
+    elif f == "moe":
+        # the reference's decode capacity factor, whatever opts say
+        y, _ = ffn_mod.moe_ffn(cfg, p["moe"],
+                               common.apply_norm(cfg, p["ln2"], h),
+                               capacity_factor=2.0,
+                               use_kernels=opts.use_kernels,
+                               single_group=opts.moe_single_group_decode)
+        h = h + y
     return h, new_entry
 
 

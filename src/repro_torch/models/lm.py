@@ -1,4 +1,4 @@
-"""Decoder-only LM (the dense and SSM families ported so far).
+"""Decoder-only LM (the dense, MoE, SSM and hybrid families).
 
 PyTorch counterparts of the JAX package's ``models/lm.py``. Params are a
 dict: ``embed`` (V, d), ``layers`` (one dict per layer), ``ln_f`` and,

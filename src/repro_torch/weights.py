@@ -9,13 +9,19 @@
 * turns ml_dtypes bfloat16 arrays into ``torch.bfloat16`` through f32
   (exact; ``torch.from_numpy`` does not take ml_dtypes' bfloat16);
 * keeps the JAX ``(in, out)`` weight layout: the port computes ``x @ w``
-  as the reference does, so nothing is transposed.
+  as the reference does, so nothing is transposed (the MoE expert stacks
+  stay ``(E, in, out)``);
+* keeps each leaf's dtype: f32 leaves (norm scales, the MoE router, the
+  SSM's ``A_log``/``dt_bias``/``D``/``norm_scale``) stay f32.
+
+The tensors go to ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 
 
@@ -27,8 +33,10 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
-    """One numpy array (ml_dtypes bfloat16 included) as a torch tensor."""
+def to_torch(a, device="cuda") -> torch.Tensor:
+    """One numpy array (ml_dtypes bfloat16 included) as a torch tensor on
+    ``device``."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(
@@ -36,9 +44,10 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def params_from_jax(tree, cfg, device="cpu"):
+def params_from_jax(tree, cfg, device="cuda"):
     """The port's params for ``cfg`` from a JAX params pytree of numpy
-    arrays."""
+    arrays, on ``device``."""
+    device = resolve_device(device)
     prefix_kinds, period_kinds, n_periods = blocks.stack_pattern(cfg)
     stack = tree["stack"]
     layers = [_map(lambda a: to_torch(a, device), p) for p in stack["prefix"]]

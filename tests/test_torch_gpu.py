@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tss
 
@@ -35,7 +36,8 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,K,G,hd", [(128, 1, 1, 64), (437, 2, 8, 128),
-                                      (256, 2, 4, 64)])
+                                      (256, 2, 4, 64),
+                                      (512, 16, 1, 128)])   # deepseek: MHA
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
 def test_flash_kernel_on_card(cuda, S, K, G, hd, dtype, causal, window):
@@ -55,7 +57,8 @@ def test_flash_kernel_on_card(cuda, S, K, G, hd, dtype, causal, window):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,K,G,hd,pos", [(8, 1024, 2, 8, 128, 600),
                                             (8, 1024, 2, 8, 128, 5000),
-                                            (3, 100, 1, 4, 64, 50)])
+                                            (3, 100, 1, 4, 64, 50),
+                                            (8, 1024, 16, 1, 128, 600)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_on_card(cuda, B, T, K, G, hd, pos, dtype):
     gen = torch.Generator(device=cuda).manual_seed(T + pos)
@@ -190,5 +193,110 @@ def test_engine_on_card_runs_ssd_kernel(cuda, n_groups):
     got, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 256,
                             CallOpts(use_kernels=True))
     want, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 256, CallOpts())
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= 3e-2
+
+
+GMM_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+             (torch.float32, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,K,N", [
+    (4, 8, 1408, 256),      # decode: 8 rows an expert, deepseek's d_ff deep
+    (3, 2, 2048, 136),      # single-group decode: capacity 2
+    (2, 448, 512, 1408),    # a ragged prefill capacity (B 8 x C 56)
+    (2, 61, 200, 72),       # past the 16-row tile, ragged edges
+    (3, 37, 45, 13),        # K and N not multiples of 8: element loads
+    (1, 130, 33, 130),      # past the 128-row tile
+])
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+def test_gmm_kernel_on_card(cuda, E, C, K, N, xdt, wdt):
+    gen = torch.Generator(device=cuda).manual_seed(C * 7 + K)
+    x = torch.randn((E, C, K), generator=gen, device=cuda).to(xdt)
+    w = (torch.randn((E, K, N), generator=gen, device=cuda)
+         / K ** 0.5).to(wdt)
+    before = tmg.launches
+    out = tmg.gmm(x, w)
+    torch.cuda.synchronize()
+    assert tmg.launches == before + 1
+    assert out.shape == (E, C, N) and out.dtype == xdt
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
+    assert rel_err(out, tref.gmm_ref(x, w)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+def test_gmm_kernel_unaligned_on_card(cuda, xdt, wdt):
+    """Contiguous tensors that start off a 16-byte boundary take the
+    element-wise loads."""
+    E, C, K, N = 2, 24, 64, 40
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(E * C * K + 1, generator=gen, device=cuda).to(xdt)
+    x = x[1:].view(E, C, K)
+    w = (torch.randn(E * K * N + 1, generator=gen, device=cuda) / 8).to(wdt)
+    w = w[1:].view(E, K, N)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    out = tmg.gmm(x, w)
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
+    assert rel_err(out, tref.gmm_ref(x, w)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,E,C,d,f", [(8, 8, 1, 256, 176), (1, 8, 2, 256, 176),
+                                       (4, 4, 56, 256, 1408)])
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+def test_expert_ffn_kernel_on_card(cuda, G, E, C, d, f, xdt, wdt):
+    gen = torch.Generator(device=cuda).manual_seed(G * C + f)
+
+    def randn(*shape, scale=1.0, dtype):
+        return (torch.randn(shape, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    xe = randn(G, E, C, d, dtype=xdt)
+    wg, wu = (randn(E, d, f, scale=d ** -0.5, dtype=wdt) for _ in range(2))
+    wd = randn(E, f, d, scale=f ** -0.5, dtype=wdt)
+    before = tmg.launches
+    out = tmg.expert_ffn(xe, wg, wu, wd, "silu")
+    torch.cuda.synchronize()
+    assert tmg.launches == before + 3
+    assert out.shape == xe.shape and out.dtype == xdt
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
+    assert rel_err(out, tref.expert_ffn_ref(xe, wg, wu, wd, "silu")) <= tol
+
+
+@pytest.mark.gpu
+def test_engine_on_card_runs_gmm_kernel(cuda):
+    """Reduced bf16 deepseek-moe-16b served on the card: each prefill and
+    decode step launches gmm three times a MoE layer, and the prefill
+    logits agree with the plain expert FFN within the bf16 tolerance."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.gpus import get_gpu_type
+    from repro_torch.core.scheduler import HASGPUScheduler
+    from repro_torch.core.vgpu import PodAlloc, VirtualGPU
+    from repro_torch.models import CallOpts, blocks
+    from repro_torch.serving import InferenceRequest, PodEngine
+
+    cfg = reduced(ARCHS["deepseek-moe-16b"])
+    n_moe = sum(f == "moe" for _, f, _ in blocks.layer_kinds(cfg))
+    vgpu = VirtualGPU("GPU-card-moe", gpu_type=get_gpu_type("h100"))
+    pod = PodAlloc(fn_id="f", sm=8, quota=1.0, batch=3)
+    vgpu.place(pod)
+    eng = PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=64, seed=1)
+    rng = np.random.default_rng(1)
+    for n in (5, 17, 30):
+        eng.submit(InferenceRequest(
+            prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=4))
+    before = tmg.launches
+    done = eng.step()
+    assert [len(r.output) for r in done] == [4, 4, 4]
+    assert tmg.launches - before == 3 * n_moe * (1 + 4)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(3, 30)),
+                           device=cuda)
+    got, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 64,
+                            CallOpts(use_kernels=True))
+    want, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 64, CallOpts())
     assert torch.isfinite(got).all()
     assert rel_err(got, want) <= 3e-2

@@ -16,6 +16,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import moe_gmm as tmg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tss
 from repro_torch.weights import to_torch
@@ -30,7 +31,7 @@ TOL_PALLAS = {jnp.bfloat16: 3e-2, jnp.float32: 1e-4}
 def both(rng, *shape, dtype):
     """One seeded array for each package: (jax array, torch tensor)."""
     a = jnp.asarray(rng.standard_normal(shape), dtype)
-    return a, to_torch(np.asarray(a))
+    return a, to_torch(np.asarray(a), device="cpu")
 
 
 def rel_err(got, want):
@@ -194,3 +195,90 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tss.ssd_chunk_scan(x, bc, bc, dt, dt,
                            torch.empty((1, 2, 32, 64), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul (gmm) and expert_ffn
+# ---------------------------------------------------------------------------
+
+# (x, w) dtype pairs: the model's bf16 and f32, and the bf16 model's MoE
+# layer, whose dispatch hands the experts f32 tokens
+GMM_PAIRS = [(jnp.bfloat16, jnp.bfloat16), (jnp.float32, jnp.float32),
+             (jnp.float32, jnp.bfloat16)]
+
+
+@pytest.mark.parametrize("E,C,K,N", [(2, 64, 128, 64), (4, 128, 64, 96),
+                                     (1, 32, 256, 128)])
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+def test_gmm_plain_matches_jax(E, C, K, N, xdt, wdt):
+    """The plain gmm (the wrapper on CPU tensors) against the JAX oracle
+    and the Pallas kernel in interpret mode, on the shapes of
+    tests/test_kernels.py, which its 32/32/64 blocks divide."""
+    rng = np.random.default_rng(E * 1000 + C + K + N)
+    (xj, xt), (wj, wt) = both(rng, E, C, K, dtype=xdt), both(rng, E, K, N,
+                                                             dtype=wdt)
+    before = tmg.launches
+    out = tmg.gmm(xt, wt)
+    assert tmg.launches == before            # CPU tensors: the plain version
+    assert out.shape == (E, C, N) and out.dtype == xt.dtype
+    assert rel_err(out, jref.gmm_ref(xj, wj)) < TOL_ORACLE[xdt]
+    pallas = jops.gmm(xj, wj, block_c=32, block_n=32, block_k=64)
+    assert pallas.dtype == xdt
+    assert rel_err(out, pallas) < TOL_PALLAS[xdt]
+
+
+@pytest.mark.parametrize("E,C,K,N", [(3, 7, 45, 13), (2, 56, 1408, 24),
+                                     (1, 1, 1, 1), (2, 9, 0, 5)])
+def test_gmm_plain_ragged_shapes(E, C, K, N):
+    """Any E, C, K, N (the Pallas wrapper asserts that its blocks divide
+    them; deepseek's K = 1408 and ragged capacities break that), against
+    an einsum in float64."""
+    rng = np.random.default_rng(C + K)
+    x, w = rng.standard_normal((E, C, K)), rng.standard_normal((E, K, N))
+    out = tmg.gmm(torch.tensor(x, dtype=torch.float32),
+                  torch.tensor(w, dtype=torch.float32))
+    want = np.einsum("eck,ekn->ecn", x, w)
+    assert out.shape == (E, C, N)
+    np.testing.assert_allclose(out.numpy(), want, rtol=0,
+                               atol=1e-5 * (np.abs(want).max() + 1))
+
+
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_expert_ffn_matches_jax(xdt, wdt, act):
+    """The port's expert_ffn (three plain gmm calls on CPU tensors) and
+    its einsum oracle against the JAX expert_ffn (Pallas, interpret mode)
+    and expert_ffn_ref; the (G,E,C,d) layout goes in and comes out."""
+    G, E, C, d, f = 2, 2, 32, 64, 128
+    rng = np.random.default_rng(3 if act == "silu" else 4)
+    xj, xt = both(rng, G, E, C, d, dtype=xdt)
+
+    def weight(*shape):                      # scaled before the cast
+        a = jnp.asarray(rng.standard_normal(shape) * 0.3, wdt)
+        return a, to_torch(np.asarray(a), device="cpu")
+
+    (gj, gt), (uj, ut), (dj, dt) = weight(E, d, f), weight(E, d, f), \
+        weight(E, f, d)
+    before = tmg.launches
+    out = tmg.expert_ffn(xt, gt, ut, dt, act)
+    assert tmg.launches == before
+    assert out.shape == (G, E, C, d) and out.dtype == xt.dtype
+    pallas = jops.expert_ffn(xj, gj, uj, dj, act, block_c=32, block_n=32,
+                             block_k=32)
+    assert rel_err(out, pallas) < TOL_PALLAS[xdt]
+    oracle = tref.expert_ffn_ref(xt, gt, ut, dt, act)
+    want = jref.expert_ffn_ref(xj, gj, uj, dj, act)
+    assert oracle.dtype == xt.dtype
+    assert rel_err(oracle, want) < TOL_PALLAS[xdt]
+    assert rel_err(out, want) < TOL_PALLAS[xdt]
+
+
+def test_gmm_refuses_other_devices():
+    """A meta tensor is refused: only CPU tensors take the plain version,
+    and anything else that is not CUDA raises before a launch."""
+    x = torch.empty((2, 4, 8), device="meta")
+    w = torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tmg.gmm(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmg.gmm(x, w.to(torch.bfloat16))

@@ -26,7 +26,7 @@ from repro.configs import ARCHS as JARCHS, reduced as jreduced
 from repro.models import CallOpts as JCallOpts
 from repro.models import attention as jattn, common as jcommon, ssm as jssm
 from repro_torch import models as tmodels
-from repro_torch.configs import ARCHS as TARCHS, MoEConfig, reduced as treduced
+from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
 from repro_torch.models import CallOpts, attention as tattn, common as tcommon
 from repro_torch.models import ssm as tssm
 from repro_torch.weights import params_from_jax, to_torch
@@ -48,17 +48,20 @@ def cfgs(arch, dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def bridged(arch, dtype, seed=0, changes=(), n_groups=None):
+def bridged(arch, dtype, seed=0, changes=(), n_groups=None, moe=()):
     """(jax cfg, jax params, port cfg, port params) on the same weights;
     shared between tests, which must not modify them. ``changes`` are
-    (field, value) pairs applied to both configs; ``n_groups`` replaces
-    the SSM's B/C group count (``reduced`` sets 1, which would hide a
-    wrong head -> group mapping)."""
+    (field, value) pairs applied to both configs, ``moe`` the same for
+    their MoE configs; ``n_groups`` replaces the SSM's B/C group count
+    (``reduced`` sets 1, which would hide a wrong head -> group mapping)."""
     jcfg, tcfg = (dataclasses.replace(c, **dict(changes))
                   for c in cfgs(arch, dtype))
     if n_groups is not None:
         jcfg, tcfg = (dataclasses.replace(c, ssm=dataclasses.replace(
             c.ssm, n_groups=n_groups)) for c in (jcfg, tcfg))
+    if moe:
+        jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, **dict(moe))) for c in (jcfg, tcfg))
     tree = jax.tree.map(np.asarray,
                         jmodels.init_params(jax.random.PRNGKey(seed), jcfg))
     rng = np.random.default_rng(seed)
@@ -72,13 +75,13 @@ def bridged(arch, dtype, seed=0, changes=(), n_groups=None):
 
     tree = jax.tree_util.tree_map_with_path(perturb, tree)
     return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
-            params_from_jax(tree, tcfg))
+            params_from_jax(tree, tcfg, device="cpu"))
 
 
 def both(a, dtype):
     """A numpy array as (jax array, torch tensor) of the same values."""
     j = jnp.asarray(a, dtype)
-    return j, to_torch(np.asarray(j))
+    return j, to_torch(np.asarray(j), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -409,19 +412,22 @@ def test_prefill_ring_roll_matches_jax():
 # twins of tests/test_arch_smoke.py on the port's own init
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b", "mamba2-2.7b",
+                                  "deepseek-moe-16b", "jamba-v0.1-52b"])
 def test_prefill_decode_consistency(arch):
     cfg = treduced(TARCHS[arch])
     params = tmodels.init_params(cfg, seed=2, device="cpu")
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen)
-    full, _ = tmodels.forward(params, cfg, {"tokens": toks})
-    last, cache = tmodels.prefill(params, cfg, {"tokens": toks[:, :-1]}, 32)
+    opts = CallOpts(capacity_factor=100.0)  # no-drop MoE for exactness
+    full, _ = tmodels.forward(params, cfg, {"tokens": toks}, opts)
+    last, cache = tmodels.prefill(params, cfg, {"tokens": toks[:, :-1]}, 32,
+                                  opts)
     ref = full[:, toks.shape[1] - 2]
     err = float((last[:, 0] - ref).abs().max() / (ref.abs().max() + 1e-9))
     assert err < 3e-2, f"prefill mismatch {err}"
     dec, _ = tmodels.decode_step(params, cfg, toks[:, -1:], toks.shape[1] - 1,
-                                 cache)
+                                 cache, opts=opts)
     ref2 = full[:, toks.shape[1] - 1]
     err2 = float((dec[:, 0] - ref2).abs().max() / (ref2.abs().max() + 1e-9))
     assert err2 < 3e-2, f"decode mismatch {err2}"
@@ -517,9 +523,6 @@ def test_init_ssm_distributions():
 
 def test_unported_kinds_raise():
     cfg = treduced(TARCHS["qwen2.5-3b"])
-    moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(4, 2))
-    with pytest.raises(NotImplementedError, match="moe"):
-        tmodels.init_params(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tmodels.init_params(dataclasses.replace(cfg, is_encoder_decoder=True),
                             device="cpu")
@@ -532,6 +535,19 @@ def test_missing_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tmodels.init_params(treduced(TARCHS["olmo-1b"]))
+
+
+def test_weight_bridge_defaults_to_the_card(monkeypatch):
+    """``to_torch`` and ``params_from_jax`` put the weights on ``cuda``
+    unless told ``device="cpu"``; without a card they raise."""
+    jcfg, jp, tcfg, _ = bridged("qwen2.5-3b", "float32")
+    tree = jax.tree.map(np.asarray, jp)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        to_torch(np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(tree, tcfg)
+    assert to_torch(np.zeros(3, np.float32), device="cpu").device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ from repro_torch.core.perf_model import FnSpec, exec_time
 from repro_torch.core.scheduler import HASGPUScheduler
 from repro_torch.core.vgpu import PodAlloc, VirtualGPU
 from repro_torch.serving import (Batcher, Gateway, InferenceRequest, LibHas,
-                           MemoryBudgetExceeded, PodEngine)
+                           MemoryBudgetExceeded, PodEngine, StepFootprint,
+                           measure_footprint)
 
 
 def _req(n=4, arrival=None):
@@ -139,6 +140,59 @@ def test_libhas_memory_budget_counts_outputs():
     lib.check_memory(_Compiled(50, 30, 20))   # 100 <= 100: fits exactly
     with pytest.raises(MemoryBudgetExceeded):
         lib.check_memory(_Compiled(50, 30, 21))  # args+temp fit, +out not
+
+
+class _FakeAllocator:
+    """The four allocator counters ``measure_footprint`` reads, driven by
+    the fake step below instead of a card."""
+
+    def __init__(self, allocated):
+        self.allocated = self.peak = allocated
+        self.synced = 0
+
+    def synchronize(self):
+        self.synced += 1
+
+    def memory_allocated(self):
+        return self.allocated
+
+    def reset_peak_memory_stats(self):
+        self.peak = self.allocated
+
+    def max_memory_allocated(self):
+        return self.peak
+
+    def alloc(self, n):
+        self.allocated += n
+        self.peak = max(self.peak, self.allocated)
+
+
+def test_measure_footprint_reads_the_allocator_around_one_step():
+    """Arguments from the tensors given (a storage shared by two views
+    counted once), outputs = allocated after - before, temp = the rest of
+    the peak above before; LibHas.check_memory reads the result as a
+    compiled step's, and needs arguments + peak - before."""
+    import torch
+    mem = _FakeAllocator(allocated=1000)
+    w = torch.zeros(64)                              # 256 B
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),  # 64 B
+             "view": w[:8]}                           # w's storage again
+
+    def step(params, batch):
+        mem.alloc(500)        # scratch
+        mem.alloc(-500)
+        mem.alloc(120)        # the outputs it leaves
+        return "logits"
+
+    fp = measure_footprint(step, {"w": w}, batch, memory=mem)
+    assert fp == StepFootprint(argument_size_in_bytes=256 + 64,
+                               temp_size_in_bytes=500 - 120,
+                               output_size_in_bytes=120)
+    assert mem.synced == 2 and fp.memory_analysis() is fp
+    need = 256 + 64 + 500
+    LibHas(client=_FakeClient(), hbm_budget_bytes=need).check_memory(fp)
+    with pytest.raises(MemoryBudgetExceeded):
+        LibHas(client=_FakeClient(), hbm_budget_bytes=need - 1).check_memory(fp)
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +373,8 @@ def test_engine_greedy_tokens_match_jax_engine(use_kernels):
     jcfg = dataclasses.replace(jreduced(JARCHS["qwen2.5-3b"]), dtype="float32")
     cfg = dataclasses.replace(reduced(ARCHS["qwen2.5-3b"]), dtype="float32")
     jparams = jmodels.init_params(jax.random.PRNGKey(5), jcfg)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in (7, 12, 3)]
@@ -374,7 +429,8 @@ def test_ssm_engine_greedy_tokens_match_jax_engine(n_groups, use_kernels):
     jcfg = cfg_of(jreduced(JARCHS["mamba2-2.7b"]))
     cfg = cfg_of(reduced(ARCHS["mamba2-2.7b"]))
     jparams = jmodels.init_params(jax.random.PRNGKey(6), jcfg)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
     rng = np.random.default_rng(6 + n_groups)
 
     uid = f"{n_groups}-{int(use_kernels)}"
@@ -402,5 +458,59 @@ def test_ssm_engine_greedy_tokens_match_jax_engine(n_groups, use_kernels):
             assert a.dtype == np.int32
             np.testing.assert_array_equal(a, b)
     assert eng.libhas.launches == jeng.libhas.launches == 2 * (1 + 5)
+    assert eng.libhas.tokens_acquired_s == pytest.approx(
+        jeng.libhas.tokens_acquired_s)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_moe_engine_greedy_tokens_match_jax_engine(use_kernels):
+    """Reduced deepseek-moe-16b, f32, bridged weights: the port's CPU
+    engine emits the JAX engine's greedy tokens, with the grouped matmul
+    on both sides (the JAX engine's Pallas gmm in interpret mode) or on
+    neither, for two batches, and charges the same token costs."""
+    import dataclasses
+    import jax
+    from repro import models as jmodels
+    from repro.configs import ARCHS as JARCHS, reduced as jreduced
+    from repro.core.scheduler import HASGPUScheduler as JScheduler
+    from repro.core.vgpu import PodAlloc as JPod, VirtualGPU as JVGPU
+    from repro.models import CallOpts as JCallOpts
+    from repro.serving import InferenceRequest as JRequest, PodEngine as JEngine
+    from repro_torch.models import CallOpts
+    from repro_torch.weights import params_from_jax
+
+    jcfg = dataclasses.replace(jreduced(JARCHS["deepseek-moe-16b"]),
+                               dtype="float32")
+    cfg = dataclasses.replace(reduced(ARCHS["deepseek-moe-16b"]),
+                              dtype="float32")
+    jparams = jmodels.init_params(jax.random.PRNGKey(7), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    rng = np.random.default_rng(7)
+
+    uid = f"moe-{int(use_kernels)}"
+    jg = JVGPU(f"GPU-jax-{uid}")
+    jpod = JPod(fn_id="f", sm=8, quota=1.0, batch=3)
+    jg.place(jpod)
+    jeng = JEngine(jcfg, jpod, jg, JScheduler(), max_seq=64, params=jparams,
+                   opts=JCallOpts(use_kernels=use_kernels), pad_id=2)
+    g = VirtualGPU(f"GPU-torch-{uid}")
+    pod = PodAlloc(fn_id="f", sm=8, quota=1.0, batch=3)
+    g.place(pod)
+    eng = PodEngine(cfg, pod, g, HASGPUScheduler(), max_seq=64,
+                    params=params, opts=CallOpts(use_kernels=use_kernels),
+                    pad_id=2, device="cpu")
+    for lengths in ((7, 12, 3), (30, 5, 18)):
+        for n in lengths:
+            p = rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
+            jeng.submit(JRequest(prompt=p, max_new_tokens=6))
+            eng.submit(InferenceRequest(prompt=p, max_new_tokens=6))
+        want = [r.output for r in jeng.step()]
+        got = [r.output for r in eng.step()]
+        assert len(got) == len(want) == 3
+        for a, b in zip(got, want):
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+    assert eng.libhas.launches == jeng.libhas.launches == 2 * (1 + 6)
     assert eng.libhas.tokens_acquired_s == pytest.approx(
         jeng.libhas.tokens_acquired_s)
