@@ -15,8 +15,12 @@ Five phases; any failure raises and the exit code is non-zero.
    <= 1e-4 in f32), and times the kernel, the plain version and, where
    one exists, one PyTorch library call (``scaled_dot_product_attention``
    for attention, ``torch.bmm`` for ``gmm``: yardsticks the port never
-   calls) with CUDA events. No single PyTorch call computes the SSD scan,
-   so ``ssd_chunk_scan`` has none.
+   calls) with CUDA events. No single PyTorch call computes the SSD scan
+   or the gated pair, so ``ssd_chunk_scan`` and ``gmm_gated`` have none;
+   the gated pair's three-step composition (two ``gmm``, ``F.silu``, the
+   multiply) is timed beside it. ``flash_attention`` and SDPA are also
+   timed by torch.profiler's device time, at qwen's and deepseek's
+   shapes.
 3. Serving qwen2.5-3b: full width (random weights from ``--seed``, bf16)
    behind ``Gateway`` -> ``PodEngine`` -> ``LibHas`` on an h100 vGPU pod
    (batch 8, sm 4): 16 requests at quota 0.3, then 16 at quota 0.9.
@@ -46,8 +50,9 @@ Five phases; any failure raises and the exit code is non-zero.
    shape at quota 1.0, 16 requests in two batches of 8: prompts of 64-512
    tokens with one of 512 (capacity 64 a group, 512 rows an expert), then
    of 64-437 with one of 437 (capacity 56, a ragged 448 rows). Checks
-   that every prefill and decode step launched ``gmm`` 3 times a MoE
-   layer (81) and the attention kernels once a layer. Holds each MoE
+   that every prefill and decode step launched the grouped matmuls twice a
+   MoE layer (``gmm_gated`` for gate and up, ``gmm`` for down: 54) and the
+   attention kernels once a layer. Holds each MoE
    layer's output, grouped matmul vs plain expert FFN on the same input,
    in bf16 (<= 3e-2), and the forward logits of a full-width stack cut to
    its first 4 layers (the dense one and 3 MoE) with fresh f32 weights
@@ -59,9 +64,11 @@ Five phases; any failure raises and the exit code is non-zero.
    Measures each step's footprint (``measure_footprint``) and checks that
    ``LibHas`` refuses a budget one byte below it. Then the same profile.
 
-The kernels phase also holds ``gmm`` and ``expert_ffn`` against their
-plain versions at the prefill, decode and ragged shapes, for three pairs
-of types (x and w bf16; x f32 and w bf16, the serving path: the
+The kernels phase also holds ``gmm``, ``gmm_gated`` and ``expert_ffn``
+against their plain versions at the prefill, decode and ragged shapes
+(``gmm_gated`` also on the dispatch's (G, E, C, d) layout, an odd K and N,
+an unaligned x, and an f32 x whose tiles are partly bf16-exact), for three
+pairs of types (x and w bf16; x f32 and w bf16, the serving path: the
 reference's one-hot dispatch promotes a bf16 model's tokens to f32; x
 and w f32, an f32 model), and both attention kernels at
 deepseek's 16 heads of 128 with one query head a KV head.
@@ -159,7 +166,7 @@ def phase_kernels(seed):
                            dtype=torch.float32).to(dtype)
 
     worst = {"flash_attention": 0.0, "decode_attention": 0.0,
-             "ssd_chunk_scan": 0.0, "gmm": 0.0}
+             "ssd_chunk_scan": 0.0, "gmm": 0.0, "gmm_gated": 0.0}
 
     def hold(name, label, got, want, dname):
         if not want.abs().max() > 0:   # an all-zero result agrees with itself
@@ -287,6 +294,48 @@ def phase_kernels(seed):
         del x, w
         wg, wu = ((randn(ME, MD, MF, dtype=torch.float32) / MD ** 0.5).to(wdt)
                   for _ in range(2))
+        # the gated pair: (groups, experts, rows, K, N); 4-D x is the
+        # dispatch's (G, E, C, d), read in place
+        for label, ng, ne, C, Kd, N in (
+                ("prefill_C512", 1, ME, 512, MD, MF),
+                ("dispatch_prefill", 8, ME, 64, MD, MF),
+                ("dispatch_ragged_C56", 8, ME, 56, MD, MF),
+                ("ragged_C448", 1, ME, 448, MD, MF),
+                ("dispatch_decode", 8, ME, 1, MD, MF),
+                ("odd_K45_N13", 2, 3, 37, 45, 13)):
+            shape = (ng, ne, C, Kd) if ng > 1 else (ne, C, Kd)
+            x = randn(*shape, dtype=xdt)
+            w1, w2 = ((randn(ne, Kd, N, dtype=torch.float32) / Kd ** 0.5)
+                      .to(wdt) for _ in range(2)) if ne != ME or Kd != MD \
+                else (wg, wu)
+            diff = hold("gmm_gated", f"{tag} {label} x {tuple(shape)} "
+                        f"@ 2x({ne},{Kd},{N})", mg.gmm_gated(x, w1, w2),
+                        ref.gmm_gated_ref(x, w1, w2), dname)
+            if (xdt, wdt) == (torch.float32, torch.bfloat16):
+                worst["gmm_gated"] = max(worst["gmm_gated"], diff)
+        flat = randn(ME * 64 * MD + 1, dtype=xdt)
+        x = flat[1:].view(ME, 64, MD)               # off a 16-byte boundary
+        hold("gmm_gated", f"{tag} unaligned x (64,64,2048)",
+             mg.gmm_gated(x, wg, wu, "gelu"),
+             ref.gmm_gated_ref(x, wg, wu, "gelu"), dname)
+        hold("gmm", f"{tag} unaligned x (64,64,2048)", mg.gmm(x, wg),
+             ref.gmm_ref(x, wg), dname)
+        if (xdt, wdt) == (torch.float32, torch.bfloat16):
+            # f32 x whose 64 x 64 patches are bf16-exact in a checkerboard,
+            # and one inexact element in an exact patch: the lo product may
+            # be skipped only where a whole tile's lo is 0
+            x = randn(ME, 512, MD, dtype=torch.float32)
+            exact = x.bfloat16().float()
+            r = torch.arange(512, device="cuda")[:, None] // 64
+            k = torch.arange(MD, device="cuda")[None, :] // 64
+            x = torch.where(((r + k) % 2 == 0)[None], exact, x)
+            x[1, 0, 0] = 64.25      # bf16 rounds it to 64: lo is 0.25
+            hold("gmm", f"{tag} mixed-exactness x (64,512,2048)",
+                 mg.gmm(x, wg), ref.gmm_ref(x, wg), dname)
+            hold("gmm_gated", f"{tag} mixed-exactness x (64,512,2048)",
+                 mg.gmm_gated(x, wg, wu), ref.gmm_gated_ref(x, wg, wu), dname)
+            del exact, r, k
+        del x, flat
         wd = (randn(ME, MF, MD, dtype=torch.float32) / MF ** 0.5).to(wdt)
         for label, ng, C in (("prefill", 8, 64), ("ragged", 8, 56),
                             ("decode", 8, 1), ("single_group", 1, 2)):
@@ -321,6 +370,32 @@ def phase_kernels(seed):
         "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True), 20),
         "flops": flops, "bytes": nbytes,
     }
+
+    def device_ms(fn, n=10):
+        """Mean device time of ``fn``'s kernels over ``n`` calls, in ms,
+        from torch.profiler (free of the host's launch rate)."""
+        busy = device_busy_ms(lambda: [fn() for _ in range(n)])[0]
+        return None if busy is None else busy / n
+
+    # the device times, and deepseek's shape (16 KV heads of one query head)
+    q16 = randn(B, S, 16, 1, HD, dtype=bf)
+    k16, v16 = (randn(B, S, 16, HD, dtype=bf) for _ in range(2))
+    q16h = q16.reshape(B, S, 16, HD).transpose(1, 2).contiguous()
+    k16h, v16h = (t.transpose(1, 2).contiguous() for t in (k16, v16))
+    for label, args, largs in (
+            (f"q ({B},{S},{K},{G},{HD})", (q, k, v), (qh, kh, vh)),
+            (f"q ({B},{S},16,1,{HD})", (q16, k16, v16), (q16h, k16h, v16h))):
+        times = [cuda_ms(lambda: fa.flash_attention(*args, causal=True), 20),
+                 cuda_ms(lambda: sdpa(*largs, is_causal=True), 20),
+                 device_ms(lambda: fa.flash_attention(*args, causal=True)),
+                 device_ms(lambda: sdpa(*largs, is_causal=True))]
+        print(f"[kernels] flash_attention bf16 causal {label}: CUDA events "
+              f"kernel {times[0]:.4f} ms, scaled_dot_product_attention "
+              f"{times[1]:.4f} ms; torch.profiler device time kernel "
+              + " ms, scaled_dot_product_attention ".join(
+                  "not measured" if t is None else f"{t:.4f}"
+                  for t in times[2:]) + " ms")
+    del q16, k16, v16, q16h, k16h, v16h
     T, pos = 1024, 600
     valid = torch.arange(T, device="cuda") <= pos
     n_valid = pos + 1
@@ -365,47 +440,84 @@ def phase_kernels(seed):
                   + 4 * n_rows * NH * SHD + 2 * 4 * B * NH * SHD * SN),
     }
     del args
-    # gmm on the serving path: the bf16 model's f32 tokens (bf16 values)
-    # times bf16 weights, at the prefill's gate/up shape. No single PyTorch
-    # call takes the two types: the library time is torch.bmm in f32 on x
-    # and an f32 copy of w (the same values); bf16 x bf16, the down
-    # projection and the decode shape are printed beside it.
+    # gmm on the serving path: the down projection of the bf16 model's f32
+    # tokens, h = act(x Wg) * (x Wu) in full f32 precision (no lo product
+    # is skipped), times bf16 weights. No single PyTorch call takes the two
+    # types: the library time is torch.bmm in f32 on x and an f32 copy of w
+    # (the same values); bf16 x bf16, the gate shape and the decode shape
+    # are printed beside it.
     E, C = ME, 512
-    x = randn(E, C, MD, dtype=torch.bfloat16).float()
-    w = (randn(E, MD, MF, dtype=torch.float32) / MD ** 0.5).bfloat16()
-    w32 = w.float()
+    xd = randn(E, C, MF, dtype=torch.float32)
+    wd = (randn(E, MF, MD, dtype=torch.float32) / MF ** 0.5).bfloat16()
+    wd32 = wd.float()
     gmm_rec = {
         "name": "gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:37",
-        "shape": f"x ({E},{C},{MD}) f32 @ w ({E},{MD},{MF}) bf16 -> f32",
+        "shape": f"x ({E},{C},{MF}) f32 @ w ({E},{MF},{MD}) bf16 -> f32",
         "max_abs_err": worst["gmm"],
-        "ms": cuda_ms(lambda: mg.gmm(x, w), 20),
-        "plain_ms": cuda_ms(lambda: ref.gmm_ref(x, w), 5),
-        "library_ms": cuda_ms(lambda: torch.bmm(x, w32), 10),
-        "flops": 2 * E * C * MD * MF,
-        "bytes": 4 * E * C * MD + 2 * E * MD * MF + 4 * E * C * MF,
+        "ms": cuda_ms(lambda: mg.gmm(xd, wd), 20),
+        "plain_ms": cuda_ms(lambda: ref.gmm_ref(xd, wd), 5),
+        "library_ms": cuda_ms(lambda: torch.bmm(xd, wd32), 10),
+        "flops": 2 * E * C * MF * MD,
+        "bytes": 4 * E * C * MF + 2 * E * MF * MD + 4 * E * C * MD,
     }
-    xb, x8 = x.bfloat16(), x[:, :8].contiguous()
-    xd = randn(E, C, MF, dtype=torch.bfloat16).float()
-    wd = (randn(E, MF, MD, dtype=torch.float32) / MF ** 0.5).bfloat16()
-    wd32 = wd.float()
-    more = [("bf16 x bf16 w, prefill gate C=512", 2 * E * C * MD * MF,
-             2 * (E * C * MD + E * MD * MF + E * C * MF),
-             lambda: mg.gmm(xb, w), lambda: torch.bmm(xb, w)),
-            ("f32 x bf16 w, prefill down C=512", 2 * E * C * MF * MD,
-             4 * E * C * MF + 2 * E * MF * MD + 4 * E * C * MD,
-             lambda: mg.gmm(xd, wd), lambda: torch.bmm(xd, wd32)),
+    del wd32
+    # the gated pair as served: the dispatch's (G, E, C, d) f32 tokens (bf16
+    # values: one token a slot) read in place, against bf16 gate and up
+    # weights; no single PyTorch call computes it
+    ng, cg = 8, 64
+    xe = randn(ng, E, cg, MD, dtype=torch.bfloat16).float()
+    wg = (randn(E, MD, MF, dtype=torch.float32) / MD ** 0.5).bfloat16()
+    wu = (randn(E, MD, MF, dtype=torch.float32) / MD ** 0.5).bfloat16()
+    rows = ng * cg
+    gated_rec = {
+        "name": "gmm_gated", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:60",
+        "shape": f"xe ({ng},{E},{cg},{MD}) f32 (bf16 values) @ w_gate, w_up "
+                 f"({E},{MD},{MF}) bf16 -> silu(gate) * up ({E},{rows},{MF}) "
+                 f"f32",
+        "max_abs_err": worst["gmm_gated"],
+        "ms": cuda_ms(lambda: mg.gmm_gated(xe, wg, wu), 20),
+        "plain_ms": cuda_ms(lambda: ref.gmm_gated_ref(xe, wg, wu), 5),
+        "library_ms": None,   # no single PyTorch call computes the pair
+        "flops": 2 * 2 * E * rows * MD * MF,
+        "bytes": 4 * E * rows * MD + 2 * 2 * E * MD * MF + 4 * E * rows * MF,
+    }
+    x3 = xe.transpose(0, 1).reshape(E, rows, MD).contiguous()
+    print(f"[kernels] gmm_gated at {gated_rec['shape']}: the three-step "
+          f"composition (two gmm launches on the (E, G*C, d) copy, F.silu, "
+          f"the multiply) {cuda_ms(lambda: F.silu(mg.gmm(x3, wg)) * mg.gmm(x3, wu), 10):.4f} ms")
+    xb, x8 = x3.bfloat16(), x3[:, :8].contiguous()
+    xe8 = xe[:, :, :1]                       # decode: 8 groups of one token
+    wg32 = wg.float()
+    more = [("bf16 x bf16 w, prefill gate C=512", 2 * E * rows * MD * MF,
+             2 * (E * rows * MD + E * MD * MF + E * rows * MF),
+             lambda: mg.gmm(xb, wg), lambda: torch.bmm(xb, wg)),
+            ("f32 x (bf16 values) bf16 w, prefill gate C=512",
+             2 * E * rows * MD * MF,
+             4 * E * rows * MD + 2 * E * MD * MF + 4 * E * rows * MF,
+             lambda: mg.gmm(x3, wg), lambda: torch.bmm(x3, wg32)),
             ("f32 x bf16 w, decode gate C=8", 2 * E * 8 * MD * MF,
              4 * E * 8 * MD + 2 * E * MD * MF + 4 * E * 8 * MF,
-             lambda: mg.gmm(x8, w), lambda: torch.bmm(x8, w32))]
+             lambda: mg.gmm(x8, wg), lambda: torch.bmm(x8, wg32)),
+            ("gated f32 x bf16 w, decode xe (8,64,1,2048)",
+             2 * 2 * E * 8 * MD * MF,
+             4 * E * 8 * MD + 2 * 2 * E * MD * MF + 4 * E * 8 * MF,
+             lambda: mg.gmm_gated(xe8, wg, wu), None),
+            ("gated bf16 x bf16 w, prefill C=512", 2 * 2 * E * rows * MD * MF,
+             2 * (E * rows * MD + 2 * E * MD * MF + E * rows * MF),
+             lambda: mg.gmm_gated(xb, wg, wu), None)]
     for label, flops, nbytes, kern, lib in more:
         bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+        lib_s = (f"torch.bmm {cuda_ms(lib, 10):.4f} ms" if lib is not None
+                 else "no library call")
         print(f"[kernels] gmm {label}: kernel {cuda_ms(kern, 20):.4f} ms, "
-              f"torch.bmm {cuda_ms(lib, 10):.4f} ms, bound {bound:.4f} ms "
+              f"{lib_s}, bound {bound:.4f} ms "
               f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    del x, w, w32, xb, x8, xd, wd, wd32
-    for rec in (flash, decode, ssd, gmm_rec):
+    del xd, wd, xe, wg, wu, x3, xb, x8, xe8, wg32
+    for rec in (flash, decode, ssd, gmm_rec, gated_rec):
         t_ops, t_bytes = rec["flops"] / PEAK_BF16, rec["bytes"] / PEAK_BW
         rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -415,7 +527,7 @@ def phase_kernels(seed):
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
               f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
               f"{rec['flops'] / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB)")
-    return [flash, decode, ssd, gmm_rec]
+    return [flash, decode, ssd, gmm_rec, gated_rec]
 
 
 def n_params(tree):
@@ -836,9 +948,9 @@ def check_single_group_decode(params, cfg, toks, n_moe):
     copies = [[{k: v.clone() for k, v in e.items()} for e in cache]
               for _ in range(2)]
     tok = toks[:, -1:]
-    before = mg.launches
+    before = mg.launches + mg.gated_launches
     got, _ = models.decode_step(params, cfg, tok, L, cache, opts=kern)
-    n = mg.launches - before
+    n = mg.launches + mg.gated_launches - before
     want, _ = models.decode_step(params, cfg, tok, L, copies[0], opts=plain)
     whole = errors(got, want)[1]
     # layer by layer on the plain stack, from a second copy of the cache
@@ -869,11 +981,11 @@ def check_single_group_decode(params, cfg, toks, n_moe):
           f"layers): each MoE layer on the plain stack's input, gmm vs "
           f"plain, max rel err {max(worst):.3g} (tol {SERVE_TOL}); whole "
           f"step's logits {whole:.3g} (reported, not held); gmm launches "
-          f"in a step {n}")
-    if not max(worst) <= SERVE_TOL or n != 3 * n_moe or not dropped:
+          f"and gmm_gated launches in a step {n}")
+    if not max(worst) <= SERVE_TOL or n != 2 * n_moe or not dropped:
         raise AssertionError(f"{cfg.name} single-group decode: rel err "
-                             f"{max(worst)}, {n} gmm launches (want "
-                             f"{3 * n_moe}), {dropped} dropped")
+                             f"{max(worst)}, {n} gmm and gmm_gated launches "
+                             f"(want {2 * n_moe}), {dropped} dropped")
 
 
 def check_footprints(engine, cfg, toks):
@@ -928,11 +1040,13 @@ def phase_serving_deepseek(seed):
 
     def counted(fn, key):
         def run(*args):
-            before = (mg.launches, fa.launches, da.launches)
+            before = (mg.launches, mg.gated_launches, fa.launches,
+                      da.launches)
             out = fn(*args)
             per_step[key].append((mg.launches - before[0],
-                                  fa.launches - before[1],
-                                  da.launches - before[2]))
+                                  mg.gated_launches - before[1],
+                                  fa.launches - before[2],
+                                  da.launches - before[3]))
             return out
         return run
 
@@ -947,28 +1061,33 @@ def phase_serving_deepseek(seed):
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = da.launches = ss.launches = mg.launches = 0
+    mg.gated_launches = 0
     lat = [serve(gw, "fn-deepseek", cfg, prompts(64, 512, 512)),
            serve(gw, "fn-deepseek", cfg, prompts(64, 437, 437))]
     launches = {"flash_attention": fa.launches,
                 "decode_attention": da.launches,
-                "ssd_chunk_scan": ss.launches, "gmm": mg.launches}
+                "ssd_chunk_scan": ss.launches, "gmm": mg.launches,
+                "gmm_gated": mg.gated_launches}
     n_pre, n_dec = len(record["prefill"]), len(record["decode"])
     check_finite(record)
     L_ = cfg.num_layers
     want = {"flash_attention": L_ * n_pre, "decode_attention": L_ * n_dec,
-            "ssd_chunk_scan": 0, "gmm": 3 * n_moe * (n_pre + n_dec)}
+            "ssd_chunk_scan": 0, "gmm": n_moe * (n_pre + n_dec),
+            "gmm_gated": n_moe * (n_pre + n_dec)}
+    # 2 grouped-matmul launches a MoE layer a step: gmm_gated (gate and
+    # up), gmm (down)
     if (launches != want or record["prefill_len"] != [512, 437]
-            or set(per_step["prefill"]) != {(3 * n_moe, L_, 0)}
-            or set(per_step["decode"]) != {(3 * n_moe, 0, L_)}):
+            or set(per_step["prefill"]) != {(n_moe, n_moe, L_, 0)}
+            or set(per_step["decode"]) != {(n_moe, n_moe, 0, L_)}):
         raise AssertionError(f"kernel launches {launches}, want {want}; per "
-                             f"step (gmm, flash, decode) "
+                             f"step (gmm, gmm_gated, flash, decode) "
                              f"{sorted(set(per_step['prefill']))} a prefill "
                              f"at lengths {record['prefill_len']}, "
                              f"{sorted(set(per_step['decode']))} a decode")
     print(f"[serving] {n_pre} prefills at lengths {record['prefill_len']}, "
           f"{n_dec} decode steps; launches {launches}; every prefill and "
-          f"decode step launched gmm {3 * n_moe} times (3 x {n_moe} MoE "
-          f"layers) and its attention kernel {L_} times")
+          f"decode step launched gmm_gated and gmm {n_moe} times each (2 x "
+          f"{n_moe} MoE layers) and its attention kernel {L_} times")
     print(f"[serving] per-request wall time at quota 1.0: "
           + ", ".join(f"{t * 1e3:.1f} ms (batch {i + 1})"
                       for i, t in enumerate(lat)))
@@ -1040,7 +1159,8 @@ def main(argv=None):
     launches = phase_serving(args.seed)
     launches["ssd_chunk_scan"] = phase_serving_mamba2(args.seed)[
         "ssd_chunk_scan"]
-    launches["gmm"] = phase_serving_deepseek(args.seed)["gmm"]
+    moe = phase_serving_deepseek(args.seed)
+    launches["gmm"], launches["gmm_gated"] = moe["gmm"], moe["gmm_gated"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for rec in records:

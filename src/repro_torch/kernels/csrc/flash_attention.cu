@@ -5,53 +5,68 @@
 // k/v (B,T,K,hd) -> o (B,S,K,G,hd) in q's dtype, scale 1/sqrt(hd), an
 // online softmax with f32 running (m, l, acc), causal and sliding-window
 // masks with the finite NEG_INF = -2e38 and l clamped at 1e-30. Query head
-// (kh, g) reads KV head kh: the KV tensors are never replicated.
+// (kh, g) reads KV head kh: the KV tensors are never replicated. Any S and
+// T are taken: query rows past S are computed and not stored, keys past T
+// are absent (-inf, weight exactly 0). Key tiles masked for every row of a
+// block (above the causal diagonal, or behind the window) are skipped: for
+// them the Pallas kernel's contribution to the result is exactly zero.
 //
 // What bounds it: causal at S = T, each query head does 2*hd*S*T
 // operations and moves its own q and o (4*S*hd bytes in bf16) plus a 1/G
 // share of K and V: about T/2 operations per byte, ~256 at the serving
 // length 512, just under the card's ~295, so the bound is bytes with the
-// operations close behind; both need the tensor cores.
+// operations close behind; both need the tensor cores at their full rate,
+// which on Hopper only wgmma fed from shared memory reaches.
 //
-// Design, common to both kernels: a block owns a 64-row query tile of one
-// (b, kv head, group). The Pallas grid's sequential k-block axis becomes a
-// loop inside the block over 64-key tiles staged in shared memory. Key
-// tiles masked for every row of the block (above the causal diagonal, or
-// behind the window) are skipped: for them the Pallas kernel's
-// contribution to the result is exactly zero. Any S and T are taken: query
-// rows past S are computed and not stored, keys past T are absent (-inf,
-// weight exactly 0).
-//
-// bf16 (the serving path): `flash_fwd_bf16`, 4 warps of 16 query rows each,
-// Q kept in registers as mma fragments, S = QK^T and O += PV on the tensor
-// cores with `mma.sync.m16n8k16` (bf16 in, f32 accumulate), P rounded to
-// bf16 for the PV product, tiles loaded with 16-byte vector loads. Later
-// work: wgmma, TMA and a pipelined K/V ring.
+// bf16 (the serving path), `flash_fwd_bf16`, in the FlashAttention-3
+// shape. A persistent block of 384 threads per SM walks work tiles of 128
+// query rows, longest causal range first: two consumer warpgroups of 64
+// rows and one producer warpgroup (`setmaxnreg` moves its registers to
+// the consumers). The producer's one thread loads each work tile's Q by
+// TMA into one of two Q buffers, and keeps K/V tiles of 128 keys in flight
+// by TMA through a ring of two shared-memory stages that runs on across
+// work tiles (a K and a V full mbarrier and one empty mbarrier a stage),
+// so the next tile's loads overlap the last tile's tail. Each consumer runs
+// S = Q K^T with wgmma (Q and K from shared memory, 128-byte swizzle), the
+// online softmax on the f32 accumulator in registers (the scale folded
+// into the exponent on tiles without masks), and O += P V with wgmma: P,
+// rounded to bf16, stays in registers as the A operand, V is read N-major
+// (transposed B). O leaves through shared memory by a TMA store, which
+// skips rows past S and runs on while the next work tile starts. GQA
+// packing: the rows of a work tile are (position, g) pairs of all G query
+// heads of one KV head (a TMA box of (64 of hd, G, 128/G positions) over
+// q's 5-D layout), so a K/V tile is read once per KV head and 128/G
+// positions, not G times; the masks use position = s0 + row / G. Where G
+// does not divide 128 a work tile is one query head and 128 positions. TMA
+// zero-fills boxes past T; those keys are still masked to -inf, so a zero
+// key is never a key. At the serving shape the kernel is bound by moving
+// its tiles: the K/V tiles that work tiles read again come from L2.
 // f32: `flash_fwd_f32`, the products as f32 FMAs from shared memory (the
 // tensor cores would round f32 inputs to tf32 or bf16, outside the 1e-4
 // tolerance); each of 256 threads owns a 4x4 patch of the score tile and a
-// 4 x hd/16 patch of the output, tiles padded by one word per row.
+// 4 x hd/16 patch of the output, tiles padded by one word per row. It
+// serves the f32 tests and stacks, not the served bf16 models.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr float NEG_INF = -2.0e38f;
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
+constexpr int BQ = 64;   // query rows per block of the f32 kernel
+constexpr int BK = 64;   // keys per tile of the f32 kernel
 constexpr int NT = 256;  // threads of the f32 kernel
-constexpr int NTM = 128; // threads of the bf16 kernel (4 warps x 16 rows)
 
 template <int HD>
 constexpr size_t smem_f32() {
   return sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
-}
-
-template <int HD>
-constexpr size_t smem_bf16() {
-  return sizeof(__nv_bfloat16) * (BQ + 2 * BK) * (HD + 8);
 }
 
 // ---------------------------------------------------------------- f32
@@ -202,206 +217,296 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
 // ---------------------------------------------------------------- bf16
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int NCW = 2;  // consumer warpgroups
+constexpr int WBM = 64 * NCW;  // query rows of a block: 64 a consumer
+constexpr int WBN = 128;  // keys of a K/V tile
+constexpr int WST = 2;    // stages of the K/V ring
+constexpr int WNT = 128 * (NCW + 1);  // threads: consumers + 1 producer
+// registers a thread of the producer and of the consumers keep: 64K an SM
+constexpr int PROD_REGS = 40;
+constexpr int CONS_REGS = 232;
 
-// two f32 -> one bf16x2 register, `lo` in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + 64) of a (rows, HD) bf16 matrix with row stride `stride`
-// into shared memory with row stride HD + 8; rows at or past n_rows are 0
+// shared memory, in bytes from a 1024-aligned base: two Q buffers (hd/64
+// boxes of 128 rows x 128 B), per stage K and V (hd/64 boxes of 128 keys x
+// 128 B each), O (laid out as Q), then the barriers
 template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long stride, int r0, int n_rows,
-                                          int tid) {
-  constexpr int CPR = HD / 8;                  // 16-byte chunks per row
-  constexpr int PER = BQ * CPR / NTM;          // chunks per thread
-  uint4 buf[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int c = tid + u * NTM, r = c / CPR, col = (c % CPR) * 8;
-    buf[u] = r0 + r < n_rows
-                 ? *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + col)
-                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int c = tid + u * NTM, r = c / CPR, col = (c % CPR) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + col) = buf[u];
-  }
-}
+struct FaLayout {
+  static constexpr int Q_BYTES = WBM * HD * 2;
+  static constexpr int KV_TILE = WBN * HD * 2;
+  static constexpr int KV0 = 2 * Q_BYTES;  // Q double-buffered
+  static constexpr int O0 = KV0 + WST * 2 * KV_TILE;  // O, laid out as Q
+  static constexpr int BARS = O0 + Q_BYTES;
+  static constexpr int TOTAL = BARS + 8 * (4 + 3 * WST) + 1024;  // + align
+};
 
 template <int HD>
-__global__ void __launch_bounds__(NTM)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int S, int Tk, int K, int G,
-               int causal, int window, float scale) {
-  constexpr int LD = HD + 8;       // shared-memory row stride (elements)
-  constexpr int KS = HD / 16;      // mma k-steps over head_dim
-  constexpr int NO = HD / 8;       // output n-tiles of 8 columns
-  constexpr int NS = BK / 8;       // score n-tiles of 8 keys
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+__global__ void __launch_bounds__(WNT, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap omap, int B, int S,
+               int Tk, int K, int G, int GP, int causal, int window,
+               float scale_log2) {
+  using L = FaLayout<HD>;
+  constexpr int NC = HD / 64;  // 64-wide column boxes of a row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sKV = base + L::KV0;
+  // Q buffer qb of two: landed, free again; then per stage: K landed, V
+  // landed, both free again
+  auto sQ = [&](int qb) { return base + qb * L::Q_BYTES; };
+  auto q_full = [&](int qb) { return base + L::BARS + 8u * qb; };
+  auto q_empty = [&](int qb) { return base + L::BARS + 8u * (2 + qb); };
+  auto full_k = [&](int s) { return base + L::BARS + 8u * (4 + s); };
+  auto full_v = [&](int s) { return base + L::BARS + 8u * (4 + WST + s); };
+  auto empty = [&](int s) { return base + L::BARS + 8u * (4 + 2 * WST + s); };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
-  const int head = blockIdx.y;              // ((b*K + kh)*G + g)
-  const int g = head % G;
-  const int kh = (head / G) % K;
-  const int b = head / (G * K);
-  const int q0 = blockIdx.x * BQ;
+  const int P = WBM / GP;  // query positions of a work tile
+  const int n_pos = (S + P - 1) / P;
+  const int n_hb = B * K * (G / GP);  // (b, kv head, head group) triples
+  const int n_work = n_pos * n_hb;
+  // work tile w: position tile n_pos - 1 - w / n_hb (longest first), then
+  // ((b*K + kh)*(G/GP) + head group) = w % n_hb; its key tiles, where rows
+  // past S extend the causal range (they are computed and not stored)
+  auto work = [&](int w, int& s0, int& g0, int& kh, int& b, int& k_begin) {
+    s0 = (n_pos - 1 - w / n_hb) * P;
+    int y = w % n_hb;
+    g0 = (y % (G / GP)) * GP;
+    y /= G / GP;
+    kh = y % K;
+    b = y / K;
+    int k_end = Tk;
+    if (causal) k_end = min(Tk, s0 + P);
+    k_begin = 0;
+    if (window && s0 - window + 1 > 0) k_begin = ((s0 - window + 1) / WBN) * WBN;
+    if (k_begin >= k_end) k_begin = 0;  // nothing unmasked: keep Pallas' result
+    return (k_end - k_begin + WBN - 1) / WBN;
+  };
 
-  const long q_stride = (long)K * G * HD;
-  const long kv_stride = (long)K * HD;
-  const long q_off = (long)b * S * q_stride + ((long)kh * G + g) * HD;
-  const __nv_bfloat16* kb = k + (long)b * Tk * kv_stride + (long)kh * HD;
-  const __nv_bfloat16* vb = v + (long)b * Tk * kv_stride + (long)kh * HD;
-
-  load_tile<HD>(Qs, q + q_off, q_stride, q0, S, tid);
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), NCW * 128);  // every consumer thread arrives
+    }
+    for (int s = 0; s < WST; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), NCW * 128);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  const int r0 = warp * 16 + gq;  // this thread's rows: r0 and r0 + 8
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* p = Qs + r0 * LD + kk * 16 + 2 * tq;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * LD);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * LD + 8);
-  }
 
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NO][4];
+  // A persistent block: it walks the work tiles w = blockIdx.x, + gridDim.x,
+  // ...; the K/V ring runs on across them (`it` counts the tiles through
+  // it), so the next tile's Q and first K/V tiles load while the consumers
+  // finish the last one.
+  const int wg = threadIdx.x / 128;
+  if (wg == NCW) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<PROD_REGS>();
+    if (threadIdx.x == NCW * 128) {
+      int it = 0, qi = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
+        int s0, g0, kh, b, k_begin;
+        const int n_tiles = work(w, s0, g0, kh, b, k_begin);
+        // the Q^T K products of the tile before the last are done
+        mbar_wait(q_empty(qi & 1), ((qi >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full(qi & 1), L::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int row[2] = {q0 + r0, q0 + r0 + 8};
-
-  int k_end = Tk;
-  if (causal) k_end = min(Tk, q0 + BQ);
-  int k_begin = 0;
-  if (window && q0 - window + 1 > 0) k_begin = ((q0 - window + 1) / BK) * BK;
-  if (k_begin >= k_end) k_begin = 0;  // nothing unmasked: keep Pallas' result
-
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();  // the previous tile's reads of Ks/Vs are done
-    load_tile<HD>(Ks, kb, kv_stride, kt, Tk, tid);
-    load_tile<HD>(Vs, vb, kv_stride, kt, Tk, tid);
-    __syncthreads();
-
-    float s[NS][4];
+        for (int c = 0; c < NC; ++c)
+          tma_load_5d(sQ(qi & 1) + c * WBM * 128, &qmap, q_full(qi & 1),
+                      c * 64, g0, kh, s0, b);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % WST;
+          mbar_wait(empty(s), ((it / WST) & 1) ^ 1);
+          const int kt = k_begin + i * WBN;
+          const uint32_t kd = sKV + s * 2 * L::KV_TILE, vd = kd + L::KV_TILE;
+          mbar_expect_tx(full_k(s), L::KV_TILE);
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+          for (int c = 0; c < NC; ++c)
+            tma_load_4d(kd + c * WBN * 128, &kmap, full_k(s), c * 64, kh, kt, b);
+          mbar_expect_tx(full_v(s), L::KV_TILE);
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* p = Ks + (j * 8 + gq) * LD + kk * 16 + 2 * tq;
-        mma_bf16(s[j], qf[kk], ld32(p), ld32(p + 8));
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kt + j * 8 + 2 * tq + (e & 1), r = row[e >> 1];
-        float x = s[j][e] * scale;
-        if (col >= Tk) {
-          x = -INFINITY;  // absent key
-        } else {
-          bool ok = true;
-          if (causal) ok = ok && col <= r;
-          if (window) ok = ok && col > r - window;
-          if (!ok) x = NEG_INF;
+          for (int c = 0; c < NC; ++c)
+            tma_load_4d(vd + c * WBN * 128, &vmap, full_v(s), c * 64, kh, kt, b);
         }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      corr[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l[h] = l[h] * corr[h] + sum[h];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
+  } else {
+    setmaxnreg_inc<CONS_REGS>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int r0 = wg * 64 + warp * 16 + lane / 4;  // rows r0 and r0 + 8
+    float m[2], l[2], corr[2];
+    float acc[HD / 2];
+    float sc[WBN / 2];          // scores, then P in f32, of one tile
+    uint32_t pa[WBN / 16][4];   // P in bf16: the A operand of PV
+    int it = 0, qi = 0;
 
-    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are exactly
-    // the A fragment of keys [16kk, 16kk + 16)
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
+      int s0, g0, kh, b, k_begin;
+      const int n_tiles = work(w, s0, g0, kh, b, k_begin);
+      const int pos[2] = {s0 + r0 / GP, s0 + (r0 + 8) / GP};
+      const int pos_lo = s0 + (wg * 64) / GP, pos_hi = s0 + (wg * 64 + 63) / GP;
+      m[0] = m[1] = NEG_INF;
+      l[0] = l[1] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
-                             pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                             pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * tq) * LD + gq;
+      for (int e = 0; e < HD / 2; ++e) acc[e] = 0.f;
+
+      // S = Q K^T of key tile i into sc, issued (not waited for); Q and K
+      // are both K-major (rows along hd); issued once K has landed
+      auto qk = [&](int i) {
+        const int s = (it + i) % WST;
+        mbar_wait(full_k(s), ((it + i) / WST) & 1);
+        const uint32_t kb = sKV + s * 2 * L::KV_TILE;
+        fence_regs(sc);
+        wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* p = vp + n * 8;
-        mma_bf16(acc[n], a, pack_bf16(p[0], p[LD]),
-                 pack_bf16(p[8 * LD], p[9 * LD]));
+        for (int j = 0; j < HD / 16; ++j) {
+          const uint32_t box = j / 4, koff = (j % 4) * 32;  // 16 of hd: 32 B
+          wgmma_ss<0>(
+              sc, desc_sw128(sQ(qi & 1) + box * WBM * 128 + wg * 64 * 128 + koff,
+                             0, 1024),
+              desc_sw128(kb + box * WBN * 128 + koff, 0, 1024), j > 0);
+        }
+        wgmma_commit();
+      };
+      // O += P V of key tile i, issued once V has landed: V is N-major (a
+      // transposed B)
+      auto pv = [&](int i) {
+        const int s = (it + i) % WST;
+        mbar_wait(full_v(s), ((it + i) / WST) & 1);
+        const uint32_t vb = sKV + s * 2 * L::KV_TILE + L::KV_TILE;
+        fence_regs(acc);
+        fence_regs(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WBN / 16; ++kk)
+          wgmma_rs<1>(acc, pa[kk], desc_sw128(vb + kk * 16 * 128, WBN * 128, 1024),
+                      1);
+        wgmma_commit();
+      };
+      // the masks and the online softmax of key tile i on sc, in log2
+      // units: sc becomes P (f32), and m, l and corr are updated
+      auto softmax = [&](int i) {
+        const int kt = k_begin + i * WBN;
+        const bool masked = kt + WBN > Tk ||
+                            (causal && kt + WBN - 1 > pos_lo) ||
+                            (window && kt <= pos_hi - window);
+        // on a tile without masks the scale is folded into the exponent's
+        // FMA (it is positive, so the max commutes with it)
+        float mx[2] = {-INFINITY, -INFINITY};
+        const float sx = masked ? 1.f : scale_log2;
+#pragma unroll
+        for (int e = 0; e < WBN / 2; ++e) {
+          if (masked) {
+            float x = sc[e] * scale_log2;
+            const int col = kt + (e / 4) * 8 + 2 * (lane % 4) + (e & 1);
+            const int p = pos[(e >> 1) & 1];
+            if (col >= Tk)
+              x = -INFINITY;  // absent key
+            else if ((causal && col > p) || (window && col <= p - window))
+              x = NEG_INF;
+            sc[e] = x;
+          }
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[h], mx[h] * sx);
+          corr[h] = exp2f(m[h] - m_new);
+          m[h] = m_new;
+        }
+#pragma unroll
+        for (int e = 0; e < WBN / 2; ++e) {
+          const float p = exp2f(fmaf(sc[e], sx, -m[(e >> 1) & 1]));
+          sc[e] = p;
+          sum[(e >> 1) & 1] += p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+          l[h] = l[h] * corr[h] + sum[h];
+        }
+      };
+      // P to bf16: the accumulators of key columns [16kk, 16kk + 16) are
+      // exactly the A fragment of that k-step
+      auto pack = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < WBN / 16; ++kk) {
+          pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      };
+
+      // One key tile at a time: S, wait, softmax, P V, wait. The two
+      // consumer warpgroups overlap each other's tensor-core and softmax
+      // work. (Issuing Q K^T of tile i + 1 before the softmax of tile i,
+      // FlashAttention-3's overlap within a warpgroup, makes ptxas
+      // serialize every wgmma (its C7514: the softmax reads scores while
+      // P V is in flight), and that measured slower on the H100.) Q is
+      // released once its last product is done.
+      mbar_wait(q_full(qi & 1), (qi >> 1) & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        qk(i);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (i + 1 == n_tiles) mbar_arrive(q_empty(qi & 1));
+        softmax(i);
+#pragma unroll
+        for (int e = 0; e < HD / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+        pack();
+        pv(i);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty((it + i) % WST));
+      }
+      it += n_tiles;
+
+      // the epilogue: O / l in bf16 into this warpgroup's half of the O
+      // tile in shared memory (Q's swizzled layout), then one TMA store of
+      // it, which skips rows past S and runs on while the next work tile
+      // starts; the last store must have read the tile before it is
+      // written again
+      const uint32_t sO = base + L::O0 + wg * 64 * 128;
+      if (tid == 0) bulk_wait_read();
+      warpgroup_sync(1 + wg);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + lane / 4 + 8 * h;  // row in the half
+        const float inv = 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n)
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                           sO + (n / 8) * WBM * 128 + r * 128 +
+                           (((n % 8) ^ (r & 7)) << 4) + 4 * (lane % 4)),
+                       "r"(pack_bf16x2(acc[4 * n + 2 * h] * inv,
+                                       acc[4 * n + 2 * h + 1] * inv))
+                       : "memory");
+      }
+      fence_proxy_async();
+      warpgroup_sync(1 + wg);
+      if (tid == 0) {
+        // the half: 64 / GP positions of GP heads, or (GP = 128) 64 heads
+        const int gs = g0 + (GP > 64 ? wg * 64 : 0);
+        const int ps = s0 + (GP > 64 ? 0 : wg * (64 / GP));
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_store_5d(&omap, sO + c * WBM * 128, c * 64, gs, kh, ps, b);
+        bulk_commit();
       }
     }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= S) continue;
-    const float den = fmaxf(l[h], 1e-30f);
-    __nv_bfloat16* op = o + q_off + row[h] * q_stride + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(op + n * 8) =
-          pack_f32(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+    if (tid == 0) bulk_wait_read();
   }
 }
 
@@ -422,18 +527,56 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int Tk, int K, int G, int causal,
                         int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bf16<HD>();
+  // GQA packing: all G query heads of a KV head in one block where G
+  // divides its 128 rows, else one query head a block
+  const int GP = WBM % G == 0 ? G : 1;
+  const int P = WBM / GP;
+  const uint64_t e = 2;  // bytes of a bf16
+  const uint64_t qd[5] = {(uint64_t)HD, (uint64_t)G, (uint64_t)K, (uint64_t)S,
+                          (uint64_t)B};
+  const uint64_t qs[4] = {HD * e, G * HD * e, (uint64_t)K * G * HD * e,
+                          (uint64_t)S * K * G * HD * e};
+  const uint32_t qb[5] = {64, (uint32_t)GP, 1, (uint32_t)P, 1};
+  const uint64_t kd[4] = {(uint64_t)HD, (uint64_t)K, (uint64_t)Tk, (uint64_t)B};
+  const uint64_t ks[3] = {HD * e, (uint64_t)K * HD * e,
+                          (uint64_t)Tk * K * HD * e};
+  const uint32_t kb[4] = {64, 1, WBN, 1};
+  // a consumer warpgroup's half of a work tile's rows
+  const uint32_t ob[5] = {64, (uint32_t)(GP < 64 ? GP : 64), 1,
+                          (uint32_t)(GP < 64 ? 64 / GP : 1), 1};
+  CUtensorMap qm, km, vm, om;
+  if (!hopper_host::make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, q, qd,
+                             qs, qb) ||
+      !hopper_host::make_map(&km, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, k, kd,
+                             ks, kb) ||
+      !hopper_host::make_map(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, v, kd,
+                             ks, kb) ||
+      !hopper_host::make_map(&om, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, o, qd,
+                             qs, ob))
+    return cudaErrorInvalidValue;
+  constexpr int smem = FaLayout<HD>::TOTAL;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_bf16<HD><<<dim3((S + BQ - 1) / BQ, B * K * G), NTM, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Tk, K, G, causal, window, scale);
+  // persistent: one block an SM, or one a work tile where there are fewer
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const long n_work = (long)((S + P - 1) / P) * B * K * (G / GP);
+  if (n_work > 0x7fffffffL) return cudaErrorInvalidValue;
+  flash_fwd_bf16<HD><<<(int)std::min<long>(n_work, n_sm), WNT, smem, stream>>>(
+      qm, km, vm, om, B, S, Tk, K, G, GP, causal, window,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -441,7 +584,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16. hd must be 64 or 128. All tensors are
 // contiguous and 16-byte aligned. Returns the cudaError_t of the launch
-// (0 = launched).
+// (0 = launched; cudaErrorInvalidValue also where cuTensorMapEncodeTiled
+// refuses a TMA tensor map).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int Tk, int K, int G, int hd, int causal,
@@ -457,3 +601,4 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     return launch_bf16<128>(q, k, v, o, B, S, Tk, K, G, causal, window, scale, st);
   return cudaErrorInvalidValue;
 }
+

@@ -1,15 +1,16 @@
-"""MoE grouped matmul: the CUDA kernel's wrapper, and ``expert_ffn``.
+"""MoE grouped matmul: the CUDA kernels' wrappers, and ``expert_ffn``.
 
-The kernel (``csrc/moe_gmm.cu``) replaces the JAX package's Pallas
-``gmm``. On a CUDA tensor ``gmm`` launches it (or raises); on a CPU tensor
-it runs the plain version ``ref.gmm_ref``. Unlike the Pallas wrapper,
-whose blocks must divide C, K and N (its default ``block_k=512`` does not
-divide deepseek-moe-16b's d_ff of 1408), it takes any E, C, K and N.
-The pairs of types taken are those the reference's MoE layer gives it:
-x and w bf16, x f32 and w bf16 (a bf16 model: the one-hot dispatch
-promotes the tokens to f32), x and w f32. The result has x's dtype.
-``expert_ffn`` composes three ``gmm`` calls into the gated expert FFN,
-as the reference's ``expert_ffn``.
+The kernels (``csrc/moe_gmm.cu``) replace the JAX package's Pallas
+``gmm``. On a CUDA tensor ``gmm`` and ``gmm_gated`` launch them (or
+raise); on a CPU tensor they run the plain versions ``ref.gmm_ref`` and
+``ref.gmm_gated_ref``. Unlike the Pallas wrapper, whose blocks must divide
+C, K and N (its default ``block_k=512`` does not divide deepseek-moe-16b's
+d_ff of 1408), they take any E, C, K and N. The pairs of types taken are
+those the reference's MoE layer gives them: x and w bf16, x f32 and w bf16
+(a bf16 model: the one-hot dispatch promotes the tokens to f32), x and w
+f32. The result has x's dtype. ``expert_ffn`` is the gated expert FFN of
+the reference's ``expert_ffn`` in two launches: ``gmm_gated`` (gate and
+up, with the activation and the product) and ``gmm`` (down).
 """
 from __future__ import annotations
 
@@ -17,24 +18,38 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
          (torch.float32, torch.float32))
+ACTS = {"silu": 1, "gelu": 2}  # gelu: the tanh approximation
 
-launches = 0  # kernel launches since the last reset (plain runs excluded)
+# kernel launches since the last reset (plain runs excluded): of gmm, and
+# of gmm_gated
+launches = 0
+gated_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """The C entry point, built and loaded at first use."""
+    """The C entry point of ``gmm``, built and loaded at first use."""
     fn = build.load("moe_gmm").gmm_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _gated_kernel():
+    """The C entry point of ``gmm_gated``, built and loaded at first use."""
+    fn = build.load("moe_gmm").gmm_gated_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 5 + [ctypes.c_long] * 3
+                   + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -71,15 +86,65 @@ def gmm(x, w):
     return o
 
 
+def gmm_gated(x, w_gate, w_up, act="silu"):
+    """``act(gmm(x, w_gate)) * gmm(x, w_up)`` in one launch.
+
+    x: (E, C, K), or (G, E, C, K) read in place (any strides with K
+    contiguous), whose G groups of C tokens of an expert become its G*C
+    rows; w_gate, w_up: (E, K, N) -> (E, C, N) or (E, G*C, N) in x's
+    dtype, f32 sums. act: "silu" or "gelu" (tanh approximation)."""
+    global gated_launches
+    if x.device.type == "cpu":
+        return ref.gmm_gated_ref(x, w_gate, w_up, act)
+    if x.dim() not in (3, 4) or w_gate.dim() != 3:
+        raise ValueError(f"gmm_gated: x {tuple(x.shape)} and w "
+                         f"{tuple(w_gate.shape)} must be (E, C, K) or "
+                         f"(G, E, C, K) and (E, K, N)")
+    xs = x if x.dim() == 4 else x.unsqueeze(0)
+    G, E, C, K = xs.shape
+    N = w_gate.shape[2]
+    if tuple(w_gate.shape[:2]) != (E, K) or w_up.shape != w_gate.shape:
+        raise ValueError(f"gmm_gated: w_gate {tuple(w_gate.shape)} / w_up "
+                         f"{tuple(w_up.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    if ((x.dtype, w_gate.dtype) not in PAIRS or w_up.dtype != w_gate.dtype):
+        raise TypeError(f"gmm_gated: dtypes x {x.dtype}, w {w_gate.dtype}/"
+                        f"{w_up.dtype}; the kernel takes (x, w) in {PAIRS}")
+    if act not in ACTS:
+        raise ValueError(f"gmm_gated: act {act!r} not in {tuple(ACTS)}")
+    if (x.device.type != "cuda" or w_gate.device != x.device
+            or w_up.device != x.device):
+        raise ValueError(f"gmm_gated: x and weights must share one CUDA "
+                         f"device, got {x.device}, {w_gate.device}, "
+                         f"{w_up.device}")
+    if not (w_gate.is_contiguous() and w_up.is_contiguous()
+            and (K <= 1 or xs.stride(3) == 1)):
+        raise ValueError("gmm_gated: the weights must be contiguous and x's "
+                         "last dimension contiguous")
+    o = torch.empty((E, G * C, N), dtype=x.dtype, device=x.device)
+    if o.numel() == 0:
+        return o
+    sg, se, sc = xs.stride(0), xs.stride(1), xs.stride(2)
+    if G == 1:  # a stride of a size-1 dimension is free: a valid one
+        sg = se * E
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _gated_kernel()(DTYPES[x.dtype], DTYPES[w_gate.dtype], x.data_ptr(),
+                         w_gate.data_ptr(), w_up.data_ptr(), o.data_ptr(),
+                         E, G, C, K, N, se, sg, sc, ACTS[act], stream)
+    if rc:
+        raise RuntimeError(f"gmm_gated: kernel launch failed with CUDA "
+                           f"error {rc}")
+    gated_launches += 1
+    return o
+
+
 def expert_ffn(xe, w_gate, w_up, w_down, act="silu"):
     """xe: (G, E, C, d) -> (G, E, C, d) via per-expert gated FFN.
 
-    ``act(gmm(x, Wg)) * gmm(x, Wu)`` in xe's dtype, then ``gmm(h, Wd)``,
-    with the tokens of all G groups of an expert in one (G*C, d) block."""
+    ``gmm_gated`` reads xe in place and gives h = act(x Wg) * (x Wu) in
+    xe's dtype, the tokens of all G groups of an expert as the rows of one
+    (G*C, f) block; then ``gmm(h, Wd)``."""
     G, E, C, d = xe.shape
-    x = xe.transpose(0, 1).reshape(E, G * C, d).contiguous()
-    a = F.silu if act == "silu" else (
-        lambda t: F.gelu(t, approximate="tanh"))
-    h = a(gmm(x, w_gate)) * gmm(x, w_up)
-    y = gmm(h.to(xe.dtype), w_down)
+    h = gmm_gated(xe, w_gate, w_up, "silu" if act == "silu" else "gelu")
+    y = gmm(h, w_down)
     return y.reshape(E, G, C, d).transpose(0, 1)

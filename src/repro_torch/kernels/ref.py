@@ -3,7 +3,8 @@
 Same layouts and arithmetic as the JAX package's ``kernels/ref.py``:
 f32 scores and softmax, masked entries at -inf, output cast back to q's
 dtype; the SSD scan in f32, chunk by chunk; the grouped matmul in f32,
-cast back to x's dtype. The kernel wrappers run these on CPU tensors.
+cast back to x's dtype (and the gated pair of two of them). The kernel
+wrappers run these on CPU tensors.
 """
 from __future__ import annotations
 
@@ -81,6 +82,23 @@ def gmm_ref(x, w):
     return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
 
 
+def _act(name):
+    if name == "silu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def gmm_gated_ref(x, w_gate, w_up, act="silu"):
+    """Gated pair oracle: ``act(gmm(x, Wg)) * gmm(x, Wu)`` in x's dtype.
+
+    x: (E,C,K), or (G,E,C,K) whose G groups of an expert become its G*C
+    rows; w_gate, w_up: (E,K,N) -> (E,C,N) or (E,G*C,N)."""
+    if x.dim() == 4:
+        G, E, C, K = x.shape
+        x = x.transpose(0, 1).reshape(E, G * C, K)
+    return _act(act)(gmm_ref(x, w_gate)) * gmm_ref(x, w_up)
+
+
 def einsum(eq, a, b):
     """``torch.einsum`` of two operands in their promoted dtype, as
     ``jnp.einsum`` computes a bf16 x f32 product in f32."""
@@ -90,8 +108,7 @@ def einsum(eq, a, b):
 
 def expert_ffn_ref(xe, w_gate, w_up, w_down, act="silu"):
     """xe: (G,E,C,d); weights (E,d,f)/(E,f,d) -> (G,E,C,d)."""
-    a = F.silu if act == "silu" else (
-        lambda t: F.gelu(t, approximate="tanh"))
+    a = _act(act)
     h = a(einsum("gecd,edf->gecf", xe, w_gate)) \
         * einsum("gecd,edf->gecf", xe, w_up)
     return einsum("gecf,efd->gecd", h, w_down)

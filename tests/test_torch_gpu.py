@@ -55,6 +55,31 @@ def test_flash_kernel_on_card(cuda, S, K, G, hd, dtype, causal, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,K,G,hd", [
+    (8, 512, 512, 2, 8, 128),   # qwen2.5-3b serving: 8 heads packed a block
+    (2, 300, 300, 1, 16, 64),   # 16 heads packed: 8 positions a block
+    (2, 200, 200, 2, 3, 128),   # G does not divide 128: one head a block
+    (1, 77, 333, 2, 6, 64),     # S != T, G does not divide 128
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
+def test_flash_kernel_gqa_packing_on_card(cuda, B, S, T, K, G, hd, causal,
+                                          window):
+    """The bf16 kernel with the query heads of a KV head packed into one
+    block's rows, and with one head a block where G does not divide them."""
+    gen = torch.Generator(device=cuda).manual_seed(S + G)
+    q = torch.randn((B, S, K, G, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((B, T, K, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((B, T, K, hd), generator=gen, device=cuda).bfloat16()
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.isfinite(out).all()
+    assert rel_err(out, want) <= 2e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,T,K,G,hd,pos", [(8, 1024, 2, 8, 128, 600),
                                             (8, 1024, 2, 8, 128, 5000),
                                             (3, 100, 1, 4, 64, 50),
@@ -209,6 +234,7 @@ GMM_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
     (2, 61, 200, 72),       # past the 16-row tile, ragged edges
     (3, 37, 45, 13),        # K and N not multiples of 8: element loads
     (1, 130, 33, 130),      # past the 128-row tile
+    (2, 40, 0, 24),         # K = 0: zeros
 ])
 @pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
 def test_gmm_kernel_on_card(cuda, E, C, K, N, xdt, wdt):
@@ -242,6 +268,87 @@ def test_gmm_kernel_unaligned_on_card(cuda, xdt, wdt):
     assert rel_err(out, tref.gmm_ref(x, w)) <= tol
 
 
+GATED_SHAPES = [
+    (1, 4, 8, 1408, 256),     # decode: 8 rows an expert
+    (8, 4, 1, 256, 176),      # decode, 8 groups of one token: 8 rows
+    (1, 2, 448, 512, 1408),   # a ragged prefill capacity: the wgmma path
+    (8, 2, 56, 512, 264),     # 8 groups of 56: row tiles of 2 groups
+    (4, 3, 40, 200, 72),      # K not a multiple of 64, ragged tiles
+    (1, 3, 37, 45, 13),       # K and N not multiples of 8: element loads
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,E,C,K,N", GATED_SHAPES)
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_gmm_gated_kernel_on_card(cuda, G, E, C, K, N, xdt, wdt, act):
+    """act(x Wg) * (x Wu) in one launch, x (G, E, C, K) read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(G * C + K)
+    x = torch.randn((G, E, C, K), generator=gen, device=cuda).to(xdt)
+    if G == 1:
+        x = x[0]
+    wg, wu = ((torch.randn((E, K, N), generator=gen, device=cuda)
+               / K ** 0.5).to(wdt) for _ in range(2))
+    before = tmg.gated_launches
+    out = tmg.gmm_gated(x, wg, wu, act)
+    torch.cuda.synchronize()
+    assert tmg.gated_launches == before + 1
+    assert out.shape == (E, G * C, N) and out.dtype == xdt
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
+    assert rel_err(out, tref.gmm_gated_ref(x, wg, wu, act)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+def test_gmm_gated_strided_and_unaligned_on_card(cuda, xdt, wdt):
+    """x read through its strides (a view of a larger tensor), and an x
+    that starts off a 16-byte boundary (element-wise loads)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    E, C, K, N = 3, 40, 64, 136
+    big = torch.randn((4, E + 1, C + 8, K + 16), generator=gen,
+                      device=cuda).to(xdt)
+    wg, wu = ((torch.randn((E, K, N), generator=gen, device=cuda) / 8)
+              .to(wdt) for _ in range(2))
+    tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
+    x = big[:, 1:, 8:, 16:]
+    assert not x.is_contiguous()
+    out = tmg.gmm_gated(x, wg, wu, "silu")
+    assert rel_err(out, tref.gmm_gated_ref(x, wg, wu, "silu")) <= tol
+    flat = torch.randn(E * C * K + 1, generator=gen, device=cuda).to(xdt)
+    x = flat[1:].view(E, C, K)
+    assert x.data_ptr() % 16
+    out = tmg.gmm_gated(x, wg, wu, "gelu")
+    assert rel_err(out, tref.gmm_gated_ref(x, wg, wu, "gelu")) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [512, 448, 200])
+def test_gmm_lo_skip_on_card(cuda, C):
+    """f32 x whose tiles are partly bf16-exact and partly not: the wgmma
+    path skips the lo product only where lo is 0 in a whole tile, so both
+    gmm and gmm_gated hold the f32 tolerance; a skip in the wrong tile
+    would drop x's bits past bf16 (~2e-3 relative)."""
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    E, K, N = 3, 256, 192
+    x = torch.randn((E, C, K), generator=gen, device=cuda)
+    exact = x.bfloat16().float()
+    # exact rows and depths in a checkerboard of 64 x 64 patches, and one
+    # inexact element alone in an otherwise exact patch (64.25 rounds to
+    # 64 in bf16: lo is 0.25)
+    r = torch.arange(C, device=cuda)[:, None] // 64
+    k = torch.arange(K, device=cuda)[None, :] // 64
+    x = torch.where(((r + k) % 2 == 0)[None], exact, x)
+    x[1, 0, 0] = 64.25
+    w, w2 = ((torch.randn((E, K, N), generator=gen, device=cuda) / 16)
+             .bfloat16() for _ in range(2))
+    assert rel_err(tmg.gmm(x, w), tref.gmm_ref(x, w)) <= 1e-4
+    assert rel_err(tmg.gmm_gated(x, w, w2, "silu"),
+                   tref.gmm_gated_ref(x, w, w2, "silu")) <= 1e-4
+    # all exact: every lo product is skipped, and the result is the same
+    assert rel_err(tmg.gmm(exact, w), tref.gmm_ref(exact, w)) <= 1e-4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,E,C,d,f", [(8, 8, 1, 256, 176), (1, 8, 2, 256, 176),
                                        (4, 4, 56, 256, 1408)])
@@ -256,10 +363,11 @@ def test_expert_ffn_kernel_on_card(cuda, G, E, C, d, f, xdt, wdt):
     xe = randn(G, E, C, d, dtype=xdt)
     wg, wu = (randn(E, d, f, scale=d ** -0.5, dtype=wdt) for _ in range(2))
     wd = randn(E, f, d, scale=f ** -0.5, dtype=wdt)
-    before = tmg.launches
+    before = tmg.launches, tmg.gated_launches
     out = tmg.expert_ffn(xe, wg, wu, wd, "silu")
     torch.cuda.synchronize()
-    assert tmg.launches == before + 3
+    # two launches: gmm_gated (gate and up), gmm (down)
+    assert (tmg.launches, tmg.gated_launches) == (before[0] + 1, before[1] + 1)
     assert out.shape == xe.shape and out.dtype == xdt
     tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
     assert rel_err(out, tref.expert_ffn_ref(xe, wg, wu, wd, "silu")) <= tol
@@ -268,7 +376,8 @@ def test_expert_ffn_kernel_on_card(cuda, G, E, C, d, f, xdt, wdt):
 @pytest.mark.gpu
 def test_engine_on_card_runs_gmm_kernel(cuda):
     """Reduced bf16 deepseek-moe-16b served on the card: each prefill and
-    decode step launches gmm three times a MoE layer, and the prefill
+    decode step launches the grouped matmuls twice a MoE layer (gmm_gated
+    and gmm), and the prefill
     logits agree with the plain expert FFN within the bf16 tolerance."""
     from repro_torch import models
     from repro_torch.configs import ARCHS, reduced
@@ -289,10 +398,11 @@ def test_engine_on_card_runs_gmm_kernel(cuda):
         eng.submit(InferenceRequest(
             prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
             max_new_tokens=4))
-    before = tmg.launches
+    before = tmg.launches, tmg.gated_launches
     done = eng.step()
     assert [len(r.output) for r in done] == [4, 4, 4]
-    assert tmg.launches - before == 3 * n_moe * (1 + 4)
+    assert tmg.launches - before[0] == n_moe * (1 + 4)
+    assert tmg.gated_launches - before[1] == n_moe * (1 + 4)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(3, 30)),
                            device=cuda)
     got, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 64,

@@ -7,6 +7,7 @@ made from a seed with numpy and handed to both packages. The CUDA kernels
 themselves are held against the plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -246,7 +247,7 @@ def test_gmm_plain_ragged_shapes(E, C, K, N):
 @pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_expert_ffn_matches_jax(xdt, wdt, act):
-    """The port's expert_ffn (three plain gmm calls on CPU tensors) and
+    """The port's expert_ffn (plain gmm_gated and gmm on CPU tensors) and
     its einsum oracle against the JAX expert_ffn (Pallas, interpret mode)
     and expert_ffn_ref; the (G,E,C,d) layout goes in and comes out."""
     G, E, C, d, f = 2, 2, 32, 64, 128
@@ -271,6 +272,65 @@ def test_expert_ffn_matches_jax(xdt, wdt, act):
     assert oracle.dtype == xt.dtype
     assert rel_err(oracle, want) < TOL_PALLAS[xdt]
     assert rel_err(out, want) < TOL_PALLAS[xdt]
+
+
+JAX_ACTS = {"silu": jax.nn.silu,
+            "gelu": lambda t: jax.nn.gelu(t, approximate=True)}
+
+
+@pytest.mark.parametrize("G,E,C,K,N", [(1, 2, 64, 128, 64), (1, 4, 32, 64, 96),
+                                       (2, 2, 32, 128, 64)])
+@pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_gmm_gated_plain_matches_jax(G, E, C, K, N, xdt, wdt, act):
+    """The plain gated pair (gmm_gated on CPU tensors, and
+    ref.gmm_gated_ref) against act(gmm(x, Wg)) * gmm(x, Wu) composed from
+    the JAX package's Pallas gmm in interpret mode, in x's dtype; x
+    (E, C, K), or (G, E, C, K) whose groups become an expert's rows."""
+    rng = np.random.default_rng(G * 100 + C + K + N)
+    xj, xt = both(rng, *((G, E, C, K) if G > 1 else (E, C, K)), dtype=xdt)
+    (gj, gt), (uj, ut) = both(rng, E, K, N, dtype=wdt), both(rng, E, K, N,
+                                                             dtype=wdt)
+    gj, uj = (a * 0.3 for a in (gj, uj))
+    gt, ut = (to_torch(np.asarray(a), device="cpu") for a in (gj, uj))
+    x2 = xj.transpose(1, 0, 2, 3).reshape(E, G * C, K) if G > 1 else xj
+
+    def pallas(w):
+        return jops.gmm(x2, w, block_c=32, block_n=32, block_k=64)
+
+    want = JAX_ACTS[act](pallas(gj)) * pallas(uj)
+    assert want.dtype == xdt
+    before = tmg.gated_launches
+    out = tmg.gmm_gated(xt, gt, ut, act)
+    assert tmg.gated_launches == before      # CPU tensors: the plain version
+    assert out.shape == (E, G * C, N) and out.dtype == xt.dtype
+    assert rel_err(out, want) < TOL_PALLAS[xdt]
+    assert rel_err(tref.gmm_gated_ref(xt, gt, ut, act), want) \
+        < TOL_PALLAS[xdt]
+
+
+def test_gmm_gated_refuses_mismatches():
+    """Mismatched shapes, types, activations and devices raise before a
+    launch (meta tensors: no card is needed to reach the checks)."""
+    x = torch.empty((2, 4, 8), device="meta")
+    w = torch.empty((2, 8, 16), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not match"):
+        tmg.gmm_gated(x, w, torch.empty((2, 8, 12), device="meta",
+                                        dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="do not match"):
+        tmg.gmm_gated(x, torch.empty((3, 8, 16), device="meta"), w)
+    with pytest.raises(ValueError, match=r"\(E, C, K\)"):
+        tmg.gmm_gated(x[0], w, w)
+    with pytest.raises(TypeError, match="dtypes"):
+        tmg.gmm_gated(x.to(torch.bfloat16), w.float(), w.float())
+    with pytest.raises(TypeError, match="dtypes"):
+        tmg.gmm_gated(x, w, w.float())
+    with pytest.raises(ValueError, match="act"):
+        tmg.gmm_gated(x, w, w, "relu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tmg.gmm_gated(x, w, w)
+    with pytest.raises(ValueError, match="CUDA"):   # weights on two devices
+        tmg.gmm_gated(x, w, torch.empty((2, 8, 16), dtype=torch.bfloat16))
 
 
 def test_gmm_refuses_other_devices():
