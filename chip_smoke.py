@@ -64,6 +64,16 @@ Five phases; any failure raises and the exit code is non-zero.
    Measures each step's footprint (``measure_footprint``) and checks that
    ``LibHas`` refuses a budget one byte below it. Then the same profile.
 
+The kernels phase also holds ``decode_attention`` at head_dim 64, 128
+and 256 with 1, 7 and 8 query heads a KV head over a partly filled and a
+wrapped ring, and on an all-false mask against the mean of V (the Pallas
+kernel's result); ``ssd_chunk_scan`` at mamba2's shapes, at chunks of 300
+rows (longer than the kernel's 256-row sub-chunks) and at jamba-v0.1-52b's
+full-width layer (128 heads of (64, 16), one group). It times decode and
+the SSD scan also by torch.profiler's device time, decode also by replaying
+a CUDA graph of 20 captured calls (the card's rate without the host's
+launches), and prints both at deepseek's decode shape and jamba's SSD
+layer beside their plain versions and bounds.
 The kernels phase also holds ``gmm``, ``gmm_gated`` and ``expert_ffn``
 against their plain versions at the prefill, decode and ragged shapes
 (``gmm_gated`` also on the dispatch's (G, E, C, d) layout, an odd K and N,
@@ -96,6 +106,7 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SERVE_TOL = 3e-2     # prefill logits, kernels vs plain attention, bf16
 K, G, HD = 2, 8, 128  # qwen2.5-3b attention: 2 KV heads x 8 query heads
 NH, SG, SHD, SN = 80, 8, 64, 128  # mamba2-2.7b SSD: heads, groups, head_dim, state
+JAMBA_SSD = (128, 1, 64, 16)      # jamba-v0.1-52b's SSD layer, the same order
 ME, MD, MF = 64, 2048, 1408       # deepseek-moe-16b: experts, d_model, expert d_ff
 
 
@@ -114,6 +125,10 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def errors(got, want):
@@ -216,6 +231,31 @@ def phase_kernels(seed):
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"], diff)
 
+    # decode at every head_dim (64: olmo, 128: qwen, deepseek; 256: gemma)
+    # and group size (1: MHA; 7: llava; 8: qwen) the configs use, over a
+    # partly filled and a wrapped ring; and an all-false mask, held against
+    # the mean of V (the Pallas kernel's result: its NEG_INF is finite)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        T = 1024
+        for hd in (64, 128, 256):
+            for g in (1, 7, 8):
+                q = randn(4, 1, 2, g, hd, dtype=dtype)
+                k, v = (randn(4, T, 2, hd, dtype=dtype) for _ in range(2))
+                for label, valid in (
+                        ("pos600", torch.arange(T, device="cuda") <= 600),
+                        ("ring_wrapped", torch.ones(T, dtype=torch.bool,
+                                                    device="cuda"))):
+                    hold("decode_attention", f"hd={hd} G={g} {label} B=4 "
+                         f"K=2 T={T}", da.decode_attention(q, k, v, valid),
+                         ref.decode_attention_ref(q, k, v, valid), dname)
+        none = torch.zeros(T, dtype=torch.bool, device="cuda")
+        mean_v = v.float().mean(dim=1)[:, None, :, None, :].expand(q.shape)
+        hold("decode_attention", f"all_false_mask vs the mean of V hd=256 "
+             f"G=8 B=4 K=2 T={T}", da.decode_attention(q, k, v, none),
+             mean_v, dname)
+        del q, k, v
+
     # deepseek-moe-16b's attention: 16 KV heads of one query head each
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
@@ -233,28 +273,35 @@ def phase_kernels(seed):
              ref.decode_attention_ref(q, k, v, valid), dname)
         del q, k, v
 
-    def ssd_inputs(nc, Q, dtype, h0_scale):
+    def ssd_inputs(nc, Q, dtype, h0_scale, nh=NH, ng=SG, hd=SHD, n=SN):
         """Chunked SSD inputs as the model makes them: x, B and C strided
         views of one (B, S, channels) conv output, B and C by group."""
         S = nc * Q
-        xbc = randn(B, S, NH * SHD + 2 * SG * SN, dtype=dtype)
-        xs, Bm, Cm = torch.split(xbc, [NH * SHD, SG * SN, SG * SN], dim=-1)
-        dt = torch.rand((B, S, NH), generator=gen, device="cuda") * 0.1 + 1e-3
-        dA = dt * -(torch.rand((NH,), generator=gen, device="cuda") * 15 + 1)
+        xbc = randn(B, S, nh * hd + 2 * ng * n, dtype=dtype)
+        xs, Bm, Cm = torch.split(xbc, [nh * hd, ng * n, ng * n], dim=-1)
+        dt = torch.rand((B, S, nh), generator=gen, device="cuda") * 0.1 + 1e-3
+        dA = dt * -(torch.rand((nh,), generator=gen, device="cuda") * 15 + 1)
 
         def chunked(t, *tail):
             return t.reshape(B, nc, Q, *tail).transpose(0, 1)
 
-        return (chunked(xs, NH, SHD), chunked(Bm, SG, SN), chunked(Cm, SG, SN),
-                chunked(dt, NH), chunked(dA, NH),
-                randn(B, NH, SHD, SN, dtype=torch.float32) * h0_scale)
+        return (chunked(xs, nh, hd), chunked(Bm, ng, n), chunked(Cm, ng, n),
+                chunked(dt, nh), chunked(dA, nh),
+                randn(B, nh, hd, n, dtype=torch.float32) * h0_scale)
 
-    ssd_cases = [("serving_L512", 2, 256, 0.0), ("ragged_Q237", 1, 237, 0.0),
-                 ("nonzero_h0", 2, 256, 0.5)]
+    # mamba2's served shapes, a chunk longer than the kernel's 256-row
+    # sub-chunks, and jamba-v0.1-52b's full-width layer (128 heads of
+    # (64, 16), one group)
+    ssd_cases = [("serving_L512", 2, 256, 0.0, ()),
+                 ("ragged_Q237", 1, 237, 0.0, ()),
+                 ("nonzero_h0", 2, 256, 0.5, ()),
+                 ("long_chunk_Q300", 2, 300, 0.5, ()),
+                 ("jamba_L512", 2, 256, 0.5, JAMBA_SSD)]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for label, nc, Q, h0_scale in ssd_cases:
-            args = ssd_inputs(nc, Q, dtype, h0_scale)
+        for label, nc, Q, h0_scale, shape in ssd_cases:
+            args = ssd_inputs(nc, Q, dtype, h0_scale, *shape)
+            nh, ng, shd, sn = shape or (NH, SG, SHD, SN)
             final, y = ss.ssd_chunk_scan(*args)
             want_final, want_y = ref.ssd_chunk_scan_ref(*args)
             torch.cuda.synchronize()
@@ -262,7 +309,7 @@ def phase_kernels(seed):
                                     ("state", final, want_final)):
                 diff, rel = errors(got, want)
                 print(f"[kernels] ssd_chunk_scan {dname} {label} nc={nc} "
-                      f"B={B} Q={Q} nh={NH} hd={SHD} N={SN} G={SG} {what}: "
+                      f"B={B} Q={Q} nh={nh} hd={shd} N={sn} G={ng} {what}: "
                       f"max abs err {diff:.3g}, max rel err {rel:.3g} "
                       f"(tol {TOL[dname]})")
                 if not rel <= TOL[dname]:
@@ -377,6 +424,21 @@ def phase_kernels(seed):
         busy = device_busy_ms(lambda: [fn() for _ in range(n)])[0]
         return None if busy is None else busy / n
 
+    def graph_ms(fn, n=20, replays=10):
+        """Mean time of one ``fn`` call in ms, from CUDA events around
+        ``replays`` replays of a CUDA graph of ``n`` captured calls (the
+        card's rate without the host's launches)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        return cuda_ms(graph.replay, replays) / n
+
     # the device times, and deepseek's shape (16 KV heads of one query head)
     q16 = randn(B, S, 16, 1, HD, dtype=bf)
     k16, v16 = (randn(B, S, 16, HD, dtype=bf) for _ in range(2))
@@ -417,7 +479,37 @@ def phase_kernels(seed):
         # the kernel reads only the valid slots' K/V (invalid tiles skipped)
         "flops": 4 * HD * B * K * G * n_valid,
         "bytes": 2 * (2 * q.numel() + 2 * B * n_valid * K * HD) + T,
+        "device_ms": device_ms(lambda: da.decode_attention(q, k, v, valid),
+                               20),
+        "graph_ms": graph_ms(lambda: da.decode_attention(q, k, v, valid)),
     }
+    # deepseek's shape: 16 KV heads of one query head
+    q16 = randn(B, 1, 16, 1, HD, dtype=bf)
+    k16, v16 = (randn(B, T, 16, HD, dtype=bf) for _ in range(2))
+    k16h, v16h = (t.permute(0, 2, 1, 3).contiguous() for t in (k16, v16))
+    q16h = q16.reshape(B, 16, 1, HD)
+    nbytes = 2 * (2 * q16.numel() + 2 * B * n_valid * 16 * HD) + T
+    bound = max(4 * HD * B * 16 * n_valid / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+
+    def kern16():
+        return da.decode_attention(q16, k16, v16, valid)
+
+    def plain16():
+        return ref.decode_attention_ref(q16, k16, v16, valid)
+
+    def sdpa16():
+        return sdpa(q16h, k16h, v16h, attn_mask=mask)
+
+    print(f"[kernels] decode_attention bf16 q ({B},1,16,1,{HD}), k/v "
+          f"({B},{T},16,{HD}), {n_valid} of {T} slots valid: CUDA events "
+          f"{cuda_ms(kern16, 50):.4f} ms, torch.profiler device time "
+          f"{fmt_ms(device_ms(kern16, 20))}, CUDA graph of 20 calls "
+          f"{graph_ms(kern16):.4f} ms a call; plain "
+          f"{cuda_ms(plain16, 20):.4f} ms, scaled_dot_product_attention "
+          f"{cuda_ms(sdpa16, 50):.4f} ms "
+          f"(device {fmt_ms(device_ms(sdpa16, 20))}), bound {bound:.4f} ms "
+          f"(bytes; {nbytes / 1e6:.1f} MB)")
+    del q16, k16, v16, k16h, v16h
     nc, Q = 2, 256
     args = ssd_inputs(nc, Q, bf, 0.0)
     pairs = nc * B * NH * Q * (Q + 1) // 2           # causal (row, key) pairs
@@ -438,7 +530,24 @@ def phase_kernels(seed):
         # x, B, C (by group) bf16, dt, dA f32 in; y f32 out; state in and out
         "bytes": (2 * n_rows * (NH * SHD + 2 * SG * SN) + 4 * 2 * n_rows * NH
                   + 4 * n_rows * NH * SHD + 2 * 4 * B * NH * SHD * SN),
+        "device_ms": device_ms(lambda: ss.ssd_chunk_scan(*args)),
     }
+    del args
+    # jamba-v0.1-52b's full-width SSD layer: 128 heads of (64, 16), one group
+    jn, jg, jhd, jsn = JAMBA_SSD
+    args = ssd_inputs(nc, Q, bf, 0.0, *JAMBA_SSD)
+    flops = 2 * pairs // NH * jn * (jsn + jhd) + 4 * n_rows * jn * jhd * jsn
+    nbytes = (2 * n_rows * (jn * jhd + 2 * jg * jsn) + 4 * 2 * n_rows * jn
+              + 4 * n_rows * jn * jhd + 2 * 4 * B * jn * jhd * jsn)
+    bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+    print(f"[kernels] ssd_chunk_scan bf16 jamba x ({nc},{B},{Q},{jn},{jhd}), "
+          f"B/C ({nc},{B},{Q},{jg},{jsn}): CUDA events "
+          f"{cuda_ms(lambda: ss.ssd_chunk_scan(*args), 20):.4f} ms, "
+          f"torch.profiler device time "
+          f"{fmt_ms(device_ms(lambda: ss.ssd_chunk_scan(*args)))}; plain "
+          f"{cuda_ms(lambda: ref.ssd_chunk_scan_ref(*args), 5):.4f} ms, no "
+          f"library call; bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)")
     del args
     # gmm on the serving path: the down projection of the bf16 model's f32
     # tokens, h = act(x Wg) * (x Wu) in full f32 precision (no lo product
@@ -523,8 +632,11 @@ def phase_kernels(seed):
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         lib = ("none" if rec["library_ms"] is None
                else f"{rec['library_ms']:.4f} ms")
+        extra = "".join(f", {key} {fmt_ms(rec[key])}"
+                        for key in ("device_ms", "graph_ms") if key in rec)
         print(f"[kernels] {rec['name']} at {rec['shape']}: kernel "
-              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+              f"{rec['ms']:.4f} ms{extra}, plain {rec['plain_ms']:.4f} ms, "
+              f"library "
               f"{lib}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
               f"{rec['flops'] / 1e9:.2f} GFLOP, {rec['bytes'] / 1e6:.1f} MB)")
     return [flash, decode, ssd, gmm_rec, gated_rec]
@@ -1162,10 +1274,11 @@ def main(argv=None):
     moe = phase_serving_deepseek(args.seed)
     launches["gmm"], launches["gmm_gated"] = moe["gmm"], moe["gmm_gated"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "graph_ms")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // mbarriers, TMA tile loads, wgmma (with its shared-memory descriptors),
-// warpgroup register moves and votes, and the host-side encoding of TMA
-// tensor maps. Raw PTX, so that a source builds in seconds.
+// ldmatrix and mma.sync, named barriers, warpgroup register moves and
+// votes, and the host-side encoding of TMA tensor maps. Raw PTX, so that
+// a source builds in seconds.
 //
 // Layout convention: every tile that TMA brings in is a box whose inner
 // dimension is 128 bytes (64 bf16 or 32 f32), stored with the 128-byte
@@ -63,6 +64,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // ---------------------------------------------------------------- TMA
 
+// starts fetching a tensor map (a kernel parameter) ahead of its first use
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2) {
@@ -123,6 +130,46 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// the `n` threads (a multiple of 32) of several warpgroups meet at named
+// barrier `id`
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// four 8x8 bf16 matrices into the mma A/B fragment layout: lanes 8i..8i+7
+// give the row addresses of matrix i; thread t receives elements
+// (t/4, 2(t%4)) and (t/4, 2(t%4)+1) of each, in r[i]
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16) B (16 x 8, bf16) on mma.sync, in the
+// m16n8k16 fragment layouts
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed, into the mma A/B fragment layout:
+// lanes 8i..8i+7 give the row addresses of matrix i; thread t receives
+// elements (2(t%4), t/4) and (2(t%4)+1, t/4) of each, in r[i]
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // orders this thread's generic-proxy shared-memory writes before later
 // async-proxy (wgmma, TMA) accesses
 __device__ __forceinline__ void fence_proxy_async() {
@@ -154,6 +201,15 @@ __device__ __forceinline__ bool warpgroup_any(bool v, int id) {
       : "r"((uint32_t)v), "r"(id)
       : "memory");
   return r != 0;
+}
+
+// 2^x in one MUFU instruction (about 2 ulp; results below 2^-126 flush to
+// 0): exp2f without fast-math adds a denormal path that measured 1.5x
+// the SSD scan's time
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -230,6 +286,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// D (64 x 64, f32) += A (64 x 16) B (16 x 64), A and B read from shared
+// memory through descriptors; TB = 1: B is N-major (transposed)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // D (64 x 128, f32) += A (64 x 16) B (16 x 128), A and B read from shared

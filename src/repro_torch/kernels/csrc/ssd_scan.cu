@@ -18,38 +18,49 @@
 // the card's ~295, so the bound is bytes; the operations need the tensor
 // cores to stay near it.
 //
-// Design: one block per (batch, head) walks the chunks in order; the state
-// (hd x N f32) lives in shared memory across them. This replaces the
-// Pallas grid's sequential chunk axis and its VMEM scratch. The Pallas
-// kernel holds a whole (Q, Q) f32 score tile (256 KiB at Q = 256), more
-// than a Hopper block's shared memory: here the chunk is cut into 64-row
-// query and key tiles and only the key tiles j <= i of query tile i are
-// computed (the others contribute exactly 0). Shared memory holds one C
-// tile, one B tile and one x tile at a time, so it does not grow with Q
-// beyond three f32 rows (dt, cum, w). Any Q is taken: rows past Q are
-// zero on load and not stored. B and C are read by group, never repeated.
-// All strides of the (chunk, batch, row) axes are arguments, so the
-// caller's chunked views of the conv output are read in place.
+// Three kernels, chosen by type and shape:
+// - bf16 at head_dim 64, state 128 (mamba2-2.7b, the served shape):
+//   `ssd_scan_wgmma`, warp-specialised, TMA-fed, on wgmma (see its
+//   comment below). It reads each tile once a 256-row sub-chunk and keeps
+//   the state in accumulator registers.
+// - bf16 at the other shapes ((32, 64), (64, 16), (32, 16): the reduced
+//   mamba2 and jamba-v0.1-52b): `ssd_scan_bf16` on mma.sync, below.
+// - f32: `ssd_scan_f32` on FMAs.
 //
-// bf16 (the serving path): `ssd_scan_bf16`, 4 warps of 16 rows each, the
-// products on the tensor cores with `mma.sync.m16n8k16` (bf16 in, f32
-// accumulate). C B^T takes the bf16 inputs as they are. The other three
-// products have one operand made in f32 (the decayed scores, the f32
-// state, x . w): it is split into a bf16 part and the bf16 rounding of
-// what remains, and both go through the tensor cores, which keeps about
-// 16 bits of it and doubles those three products. Rounded to bf16 once
-// (8 bits), the output erred by ~3e-3 of its largest value; split, by
-// ~1e-5, as an f32 sum taken in another order does. Later work: the
-// 3-phase chunk-state / inter-chunk scan / output split (Dao & Gu), wgmma
-// and TMA.
-// f32: `ssd_scan_f32`, the products as f32 FMAs from shared memory (the
-// tensor cores would round f32 inputs past the 1e-4 tolerance).
+// The two older kernels: one block per (batch, head) walks the chunks in
+// order; the state (hd x N f32) lives in shared memory across them. This
+// replaces the Pallas grid's sequential chunk axis and its VMEM scratch.
+// The Pallas kernel holds a whole (Q, Q) f32 score tile (256 KiB at Q =
+// 256), more than a Hopper block's shared memory: here the chunk is cut
+// into 64-row query and key tiles and only the key tiles j <= i of query
+// tile i are computed (the others contribute exactly 0). Shared memory
+// holds one C tile, one B tile and one x tile at a time, so it does not
+// grow with Q beyond three f32 rows (dt, cum, w). Any Q is taken: rows
+// past Q are zero on load and not stored. B and C are read by group, never
+// repeated. All strides of the (chunk, batch, row) axes are arguments, so
+// the caller's chunked views of the conv output are read in place.
+//
+// `ssd_scan_bf16`: 4 warps of 16 rows each, the products on the tensor
+// cores with `mma.sync.m16n8k16` (bf16 in, f32 accumulate). C B^T takes
+// the bf16 inputs as they are. The other three products have one operand
+// made in f32 (the decayed scores, the f32 state, x . w): it is split into
+// a bf16 part and the bf16 rounding of what remains, and both go through
+// the tensor cores, which keeps about 16 bits of it and doubles those
+// three products. Rounded to bf16 once (8 bits), the output erred by ~3e-3
+// of its largest value; split, by ~1e-5, as an f32 sum taken in another
+// order does. The wgmma kernel keeps the same split.
+// `ssd_scan_f32`: the products as f32 FMAs from shared memory (the tensor
+// cores would round f32 inputs past the 1e-4 tolerance).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BT = 64;    // rows of a query or key tile
 constexpr int NTH = 128;  // threads of the bf16 kernel (4 warps x 16 rows)
@@ -290,15 +301,6 @@ __global__ void __launch_bounds__(NTF) ssd_scan_f32(Args a) {
 }
 
 // ---------------------------------------------------------------- bf16
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two f32 -> one bf16x2 register, `lo` in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -568,6 +570,347 @@ __global__ void __launch_bounds__(NTH) ssd_scan_bf16(Args a) {
   for (int i = tid; i < HD * N; i += NTH) ho[i] = hs[(i / N) * LDH + i % N];
 }
 
+// ---------------------------------------------------------------- bf16, wgmma
+
+// The served shape (head_dim 64, state 128) in bf16: a persistent block
+// of three warpgroups per SM walks the (batch, head) pairs. Chunks are walked in sub-chunks of at most
+// QT = 256 rows (the chunked scan is exact for any chunk length, so a
+// chunk longer than 256 rows is two or more of them; the sums only take
+// another order). The producer warpgroup's one thread loads a sub-chunk's
+// C, B and x tiles of 64 rows by TMA (5-D maps over the strided views,
+// rows past the chunk zero-filled), each tile once a sub-chunk: all four
+// tiles of each stay resident for both the intra-chunk products and the
+// state update (64 + 64 + 32 KB). Tile t has a full mbarrier and an empty
+// one: the next sub-chunk's tile t loads as soon as both consumers' state
+// updates are done with this one. The two consumer warpgroups own query
+// tiles {0, 3} and {1, 2} (five key tiles each under the causal mask) and
+// one 64-column half of the f32 state each, kept in wgmma accumulator
+// registers across chunks. A sub-chunk, per consumer warpgroup:
+//  1. dt, cum = cumsum(dA) (a scan over the 256 consumer threads) and
+//     w = dt exp(total - cum) into shared memory;
+//  2. its state half, split into bf16 hi and lo parts, into shared memory
+//     (the B operand of C h^T, K-major, 128-byte swizzle);
+//  3. for each of its query tiles: y = C h_hi^T + C h_lo^T (SS wgmma),
+//     rows scaled by exp(cum); for each key tile on or below the diagonal
+//     S = C B^T (SS), exp(segsum) dt and the mask applied in registers
+//     (the mask before the exp), P split hi/lo as the register A operand
+//     of y += P x (RS, x N-major); y stored as f32;
+//  4. its state half h <- exp(total) h + (x w)^T B (RS: the A fragments
+//     of (x w)^T by ldmatrix.trans from the x tile, scaled by w and split
+//     hi/lo; B N-major).
+// Named barriers between the two consumers order 1-2 against the last
+// sub-chunk's reads. The tiles' barriers run on from one (batch, head)
+// pair to the next, so its first tiles load while the last sub-chunk
+// computes; dt and dA are read a sub-chunk ahead. The decay's exp is one
+// MUFU instruction (`ex2`, cum kept in log2 units): with exp2f's
+// denormal path the kernel took 1.5x as long. Every product with an
+// operand made in f32 is issued on its hi and its lo part, as in
+// `ssd_scan_bf16`: the numbers do not change.
+namespace wg {
+constexpr int HD = 64, N = 128;
+constexpr int QT = 256;               // rows of a sub-chunk
+constexpr int NTILE = QT / BT;        // its 64-row tiles
+constexpr int BOX = BT * 128;         // one 128-byte-wide TMA box of 64 rows
+constexpr int C_TILE = BT * N * 2;    // a C or B tile: two boxes
+constexpr int X_TILE = BT * HD * 2;   // an x tile: one box
+// byte offsets from a 1024-aligned base
+constexpr int C0 = 0;
+constexpr int B0 = C0 + NTILE * C_TILE;
+constexpr int X0 = B0 + NTILE * C_TILE;
+constexpr int HH = X0 + NTILE * X_TILE;  // the state's hi part, HD x N
+constexpr int HL = HH + HD * N * 2;      // and its lo part
+constexpr int SC = HL + HD * N * 2;      // dt, cum, w (QT f32 each), 8 sums
+constexpr int BARS = SC + 4 * (3 * QT + 8);
+constexpr int TOTAL = BARS + 8 * 2 * NTILE + 1024;
+constexpr int NTHREADS = 384;
+constexpr int PROD_REGS = 40, CONS_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::NTHREADS, 1)
+ssd_scan_wgmma(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap bmap,
+               const __grid_constant__ CUtensorMap cmap, Args a, int n_bh,
+               int swap) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(sm);
+  float* dts = reinterpret_cast<float*>(sm + SC);
+  float* cum = dts + QT;
+  float* ws = cum + QT;
+  float* wsum = ws + QT;
+  auto full = [&](int t) { return base + BARS + 8u * t; };
+  auto empty = [&](int t) { return base + BARS + 8u * (NTILE + t); };
+
+  const int nsub = (a.Q + QT - 1) / QT;
+  const int n_it = a.nc * nsub;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&xmap);
+    prefetch_map(&bmap);
+    prefetch_map(&cmap);
+    for (int t = 0; t < NTILE; ++t) {
+      mbar_init(full(t), 1);
+      mbar_init(empty(t), 256);  // every consumer thread arrives
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    setmaxnreg_dec<PROD_REGS>();
+    if (threadIdx.x == 256) {
+      int uses[NTILE] = {};
+      for (int bh = blockIdx.x; bh < n_bh; bh += gridDim.x)
+      for (int ci = 0; ci < n_it; ++ci) {
+        const int h = bh % a.nh, b = bh / a.nh, g = h / (a.nh / a.G);
+        const int c = ci / nsub, s = ci % nsub;
+        const int nt = (min(QT, a.Q - s * QT) + BT - 1) / BT;
+#pragma unroll
+        for (int t = 0; t < NTILE; ++t) {
+          if (t >= nt) break;
+          mbar_wait(empty(t), (uses[t] & 1) ^ 1);
+          ++uses[t];
+          const int r0 = s * QT + t * BT;
+          // (chunk, batch) in the order of the maps' strides
+          const int cc3 = swap ? b : c, cc4 = swap ? c : b;
+          mbar_expect_tx(full(t), 2 * C_TILE + X_TILE);
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx) {
+            tma_load_5d(base + C0 + t * C_TILE + bx * BOX, &cmap, full(t),
+                        bx * 64, g, r0, cc3, cc4);
+            tma_load_5d(base + B0 + t * C_TILE + bx * BOX, &bmap, full(t),
+                        bx * 64, g, r0, cc3, cc4);
+          }
+          tma_load_5d(base + X0 + t * X_TILE, &xmap, full(t), 0, h, r0, cc3,
+                      cc4);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONS_REGS>();
+  const int ctid = threadIdx.x, tid = ctid % 128, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  int uses[NTILE] = {};
+  // a persistent block: it walks the (batch, head) pairs bh = blockIdx.x,
+  // + gridDim.x, ...; the tiles' barriers run on across them, so the next
+  // pair's first tiles load while this one's last sub-chunk computes
+  for (int bh = blockIdx.x; bh < n_bh; bh += gridDim.x) {
+  const int h = bh % a.nh, b = bh / a.nh;
+  // dt and dA of row ctid of sub-chunk ci, loaded a sub-chunk ahead
+  auto fetch = [&](int ci, float& dt, float& dA) {
+    const int c = ci / nsub, s = ci % nsub;
+    dt = dA = 0.f;
+    if (s * QT + ctid < a.Q && ctid < QT) {
+      const long long r = s * QT + ctid;
+      dt = a.dt[c * a.sdt.c + b * a.sdt.b + r * a.sdt.q + h];
+      dA = a.dA[c * a.sdA.c + b * a.sdA.b + r * a.sdA.q + h];
+    }
+  };
+  float dt_next, dA_next;
+  fetch(0, dt_next, dA_next);
+  // this warpgroup's state half: row p = 16 warp + gq + 8 hh, column
+  // 64 wgi + 8 nn + 2 tq + e in hs[4 nn + 2 hh + e]
+  float hs[32];
+  const float* h0 = a.h0 + (long long)bh * HD * N;
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          h0 + (16 * warp + gq + 8 * hh) * N + 64 * wgi + 8 * nn + 2 * tq);
+      hs[4 * nn + 2 * hh] = v.x;
+      hs[4 * nn + 2 * hh + 1] = v.y;
+    }
+
+  for (int ci = 0; ci < n_it; ++ci) {
+    const int c = ci / nsub, s = ci % nsub;
+    const int Qs = min(QT, a.Q - s * QT), row0 = s * QT;
+    const int nt = (Qs + BT - 1) / BT;
+
+    // 1. the scalars; the last sub-chunk is done with them and the state copy
+    named_sync(1, 256);
+    float et;
+    {
+      const int q = ctid;
+      const float dt = dt_next;
+      float v = dA_next;  // inclusive scan: the warp, then the 8 warps' sums
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += t;
+      }
+      if (lane == 31) wsum[ctid / 32] = v;
+      named_sync(1, 256);
+      float pre = 0.f, total = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const float x = wsum[w];
+        if (w < ctid / 32) pre += x;
+        total += x;
+      }
+      const float cq = v + pre;  // cum, in log2 units from here on
+      dts[q] = dt;
+      cum[q] = cq * LOG2E;
+      ws[q] = q < Qs ? dt * exp2f((total - cq) * LOG2E) : 0.f;
+      et = exp2f(total * LOG2E);
+    }
+    if (ci + 1 < n_it) fetch(ci + 1, dt_next, dA_next);
+    // 2. the state half, hi and lo, into box wgi of HH / HL
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = 16 * warp + gq + 8 * hh;
+        uint32_t hi, lo;
+        split_f32(hs[4 * nn + 2 * hh], hs[4 * nn + 2 * hh + 1], hi, lo);
+        const uint32_t off = wgi * BOX + p * 128 + ((nn ^ (p & 7)) << 4) + 4 * tq;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(base + HH + off), "r"(hi) : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(base + HL + off), "r"(lo) : "memory");
+      }
+    fence_proxy_async();
+    named_sync(1, 256);
+
+    // 3. y of this warpgroup's query tiles
+    for (int it = 0; it < nt; ++it) {
+      if (((it % 4 == 0 || it % 4 == 3) ? 0 : 1) != wgi) continue;
+      mbar_wait(full(it), uses[it] & 1);
+      const uint32_t cb = base + C0 + it * C_TILE;
+      float acc[32];
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int part = 0; part < 2; ++part)
+#pragma unroll
+        for (int j = 0; j < N / 16; ++j) {
+          const uint32_t off = (j / 4) * BOX + (j % 4) * 32;
+          wgmma_ss<0>(acc, desc_sw128(cb + off, 0, 1024),
+                      desc_sw128(base + (part ? HL : HH) + off, 0, 1024),
+                      part + j > 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      const int rl[2] = {it * BT + 16 * warp + gq, it * BT + 16 * warp + gq + 8};
+      const float ec[2] = {rl[0] < Qs ? ex2(cum[rl[0]]) : 0.f,
+                           rl[1] < Qs ? ex2(cum[rl[1]]) : 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] *= ec[(e >> 1) & 1];
+
+      for (int jt = 0; jt <= it; ++jt) {
+        mbar_wait(full(jt), uses[jt] & 1);
+        float sc[32];
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < N / 16; ++j) {
+          const uint32_t off = (j / 4) * BOX + (j % 4) * 32;
+          wgmma_ss<0>(sc, desc_sw128(cb + off, 0, 1024),
+                      desc_sw128(base + B0 + jt * C_TILE + off, 0, 1024), j > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        // exp(segsum) dt; 0 above the diagonal and past the sub-chunk,
+        // where exp is never taken
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = jt * BT + 8 * (e / 4) + 2 * tq + (e & 1);
+          const int r = rl[(e >> 1) & 1];
+          sc[e] = (r >= col && r < Qs) ? sc[e] * ex2(cum[r] - cum[col]) * dts[col] : 0.f;
+        }
+        // the accumulators of key columns [16kk, 16kk + 16) are the A
+        // fragment of k-step kk, split in two
+        uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            split_f32(sc[8 * kk + 2 * u], sc[8 * kk + 2 * u + 1], ph[kk][u], pl[kk][u]);
+        const uint32_t xb = base + X0 + jt * X_TILE;
+        fence_regs(acc);
+        fence_regs(ph);
+        fence_regs(pl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(acc, ph[kk], desc_sw128(xb + kk * 16 * 128, BOX, 1024), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(acc, pl[kk], desc_sw128(xb + kk * 16 * 128, BOX, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (rl[hh] >= Qs) continue;
+        float* yp = a.y + c * a.sy.c + b * a.sy.b + (long long)(row0 + rl[hh]) * a.sy.q +
+                    (long long)h * HD + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(yp + 8 * n) =
+              make_float2(acc[4 * n + 2 * hh], acc[4 * n + 2 * hh + 1]);
+      }
+    }
+
+    // 4. h <- exp(total) h + (x w)^T B over this warpgroup's state half
+#pragma unroll
+    for (int e = 0; e < 32; ++e) hs[e] *= et;
+    for (int jt = 0; jt < nt; ++jt) {
+      mbar_wait(full(jt), uses[jt] & 1);
+      const uint32_t xb = base + X0 + jt * X_TILE;
+      const uint32_t bb = base + B0 + jt * C_TILE + wgi * BOX;
+      uint32_t xh[4][4], xl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // A[p][q] = x[q][p] w[q]: matrix i of lanes 8i.. holds rows p of
+        // 16 warp + 8 (i & 1), keys 16 kk + 8 (i >> 1)
+        const int mi = lane >> 3, q = 16 * kk + (lane & 7) + 8 * (mi >> 1);
+        const int chk = 2 * warp + (mi & 1);
+        uint32_t raw[4];
+        ldmatrix_x4_trans(raw, xb + q * 128 + ((chk ^ (q & 7)) << 4));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int qk = jt * BT + 16 * kk + 2 * tq + 8 * (u >> 1);
+          split_f32(__uint_as_float(raw[u] << 16) * ws[qk],
+                    __uint_as_float(raw[u] & 0xffff0000u) * ws[qk + 1], xh[kk][u],
+                    xl[kk][u]);
+        }
+      }
+      fence_regs(hs);
+      fence_regs(xh);
+      fence_regs(xl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(hs, xh[kk], desc_sw128(bb + kk * 16 * 128, BOX, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(hs, xl[kk], desc_sw128(bb + kk * 16 * 128, BOX, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(hs);
+      mbar_arrive(empty(jt));
+    }
+    for (int t = 0; t < nt; ++t) ++uses[t];
+  }
+
+  float* ho = a.hout + (long long)bh * HD * N;
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(ho + (16 * warp + gq + 8 * hh) * N + 64 * wgi +
+                                 8 * nn + 2 * tq) =
+          make_float2(hs[4 * nn + 2 * hh], hs[4 * nn + 2 * hh + 1]);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <int HD, int N>
@@ -589,10 +932,54 @@ cudaError_t launch(int dtype, const Args& a, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_wgmma(const Args& a, int batch, cudaStream_t stream) {
+  using namespace wg;
+  // the maps' dims (inner, heads or groups, row, then chunk and batch in
+  // the order of their strides, as the caller's views have them)
+  const int swap = a.sx.c > a.sx.b;
+  auto make = [&](CUtensorMap* m, const void* p, int inner, int heads,
+                  const Strides& st) {
+    const uint64_t d[5] = {(uint64_t)inner, (uint64_t)heads, (uint64_t)a.Q,
+                           (uint64_t)(swap ? batch : a.nc),
+                           (uint64_t)(swap ? a.nc : batch)};
+    const uint64_t str[4] = {(uint64_t)inner * 2, (uint64_t)st.q * 2,
+                             (uint64_t)(swap ? st.b : st.c) * 2,
+                             (uint64_t)(swap ? st.c : st.b) * 2};
+    const uint32_t box[5] = {64, 1, BT, 1, 1};
+    return hopper_host::make_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, p, d,
+                                 str, box);
+  };
+  CUtensorMap xm, bm, cm;
+  if (!make(&xm, a.x, HD, a.nh, a.sx) || !make(&bm, a.B, N, a.G, a.sB) ||
+      !make(&cm, a.C, N, a.G, a.sC))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_scan_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, TOTAL);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  // persistent: one block an SM, or one a (batch, head) pair where fewer
+  const int n_bh = batch * a.nh;
+  ssd_scan_wgmma<<<min(n_bh, n_sm), wg::NTHREADS, TOTAL, stream>>>(
+      xm, bm, cm, a, n_bh, swap);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of x, B and C; dt, dA, h0, y and the
-// state are f32). (hd, N) is (64, 128) or (32, 64); nh a multiple of G.
+// state are f32). (hd, N) is (64, 128), (32, 64), (64, 16) or (32, 16);
+// nh a multiple of G.
 // `strides` holds 18 element strides: the (chunk, batch, row) strides of
 // x, B, C, dt, dA and y, in that order; within a row the heads and their
 // elements are contiguous. x, B and C 16-byte aligned, and their strides
@@ -623,7 +1010,10 @@ extern "C" int ssd_chunk_scan_fwd(int dtype, const void* x, const void* B,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = batch * nh;
+  if (dtype == 1 && hd == 64 && N == 128) return launch_wgmma(a, batch, st);
   if (hd == 64 && N == 128) return launch<64, 128>(dtype, a, blocks, st);
   if (hd == 32 && N == 64) return launch<32, 64>(dtype, a, blocks, st);
+  if (hd == 64 && N == 16) return launch<64, 16>(dtype, a, blocks, st);
+  if (hd == 32 && N == 16) return launch<32, 16>(dtype, a, blocks, st);
   return cudaErrorInvalidValue;
 }

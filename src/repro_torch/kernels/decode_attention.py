@@ -1,9 +1,10 @@
 """One-token GQA decode attention: the CUDA kernel's wrapper.
 
-The kernels (``csrc/decode_attention.cu``: a split-T partial pass and a
-combine pass) replace the JAX package's Pallas ``decode_attention``. On a
-CUDA tensor the wrapper launches them (or raises); on a CPU tensor it
-runs the plain version ``ref.decode_attention_ref``.
+The kernel (``csrc/decode_attention.cu``: one launch, the splits of each
+(batch, KV head) one thread-block cluster) replaces the JAX package's
+Pallas ``decode_attention``. On a CUDA tensor the wrapper launches it (or
+raises); on a CPU tensor it runs the plain version
+``ref.decode_attention_ref``.
 """
 from __future__ import annotations
 
@@ -15,11 +16,14 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-TILE = 64           # keys per tile inside the kernel
-TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+HEAD_DIMS = (64, 128, 256)
+MAX_G = 16          # query heads per KV head
+TILE = 64           # keys per tile inside the kernel (the mask's granularity)
+MAX_SPLIT = 8       # blocks of a cluster: the portable cluster size
+MAX_T = 131072      # cache slots (the kernel keeps the mask's bits in shared memory)
+BLOCKS_PER_SM = 2   # the kernel's shared memory lets two blocks share an SM
 
-launches = 0  # wrapper calls that launched the kernels (plain runs excluded)
+launches = 0  # wrapper calls that launched the kernel (plain runs excluded)
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,21 +31,30 @@ def _kernel():
     """The C entry point, built and loaded at first use."""
     fn = build.load("decode_attention").decode_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
-def split_len(B: int, K: int, T: int) -> int:
-    """Keys per partial block: a multiple of the tile, short enough that
-    the (splits x B*K) grid gives about ``TARGET_BLOCKS`` blocks."""
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_splits(B: int, K: int, T: int, n_sm: int = 132) -> int:
+    """Blocks (one cluster) per (batch, KV head): enough for about
+    ``BLOCKS_PER_SM`` blocks on each SM, at most ``MAX_SPLIT`` and at most
+    one per 64-key tile. Where B*K alone fills the card, one."""
     tiles = -(-T // TILE)
-    want = max(1, -(-TARGET_BLOCKS // (B * K)))
-    return TILE * -(-tiles // min(tiles, want))
+    return max(1, min(MAX_SPLIT, tiles, BLOCKS_PER_SM * n_sm // (B * K)))
 
 
 def decode_attention(q, k, v, valid):
-    """q: (B,1,K,G,hd); k,v: (B,T,K,hd); valid: (T,) bool -> (B,1,K,G,hd)."""
+    """q: (B,1,K,G,hd); k,v: (B,T,K,hd); valid: (T,) bool -> (B,1,K,G,hd).
+
+    One kernel launch; no scratch. An all-false mask gives the mean of V
+    (the Pallas kernel's finite NEG_INF), on the card as in the plain
+    version."""
     global launches
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid)
@@ -60,26 +73,22 @@ def decode_attention(q, k, v, valid):
     if one != 1 or tuple(k.shape) != (B, T, K, hd) or v.shape != k.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if hd not in HEAD_DIMS or G > 16 * (128 // hd):
+    if (hd not in HEAD_DIMS or not 1 <= G <= MAX_G or B * K > 65535
+            or not 1 <= T <= MAX_T):
         raise ValueError(f"decode_attention: head_dim {hd} (of {HEAD_DIMS}) "
-                         f"with {G} query heads per KV head is not supported")
-    if not (valid.is_contiguous() and all(
-            t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v))):
-        raise ValueError("decode_attention: inputs must be contiguous, and "
-                         "q, k, v 16-byte aligned")
+                         f"with {G} query heads per KV head (1 to {MAX_G}), "
+                         f"B*K {B * K} and {T} cache slots (at most {MAX_T}) "
+                         f"is not supported")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v, valid)):
+        raise ValueError("decode_attention: q, k, v, valid must be "
+                         "contiguous and 16-byte aligned")
     o = torch.empty_like(q)
-    sl = split_len(B, K, T)
-    n_split = -(-T // sl)
-    # per split and query head: the running max, the sum, and hd of acc
-    rows = B * K * n_split * G
-    part = torch.empty((rows * (2 + hd),), dtype=torch.float32,
-                       device=q.device)
-    m_ptr = part.data_ptr()
+    ns = n_splits(B, K, T, _n_sm(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel()(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   valid.data_ptr(), o.data_ptr(), m_ptr, m_ptr + 4 * rows,
-                   m_ptr + 8 * rows, B, T, K, G, hd, sl, 1.0 / (hd ** 0.5),
-                   stream)
+                   valid.data_ptr(), o.data_ptr(), B, T, K, G, hd, ns,
+                   1.0 / (hd ** 0.5), stream)
     if rc:
         raise RuntimeError(f"decode_attention: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
 Same layouts and arithmetic as the JAX package's ``kernels/ref.py``:
-f32 scores and softmax, masked entries at -inf, output cast back to q's
-dtype; the SSD scan in f32, chunk by chunk; the grouped matmul in f32,
-cast back to x's dtype (and the gated pair of two of them). The kernel
-wrappers run these on CPU tensors.
+f32 scores and softmax, masked entries at -inf (decode: at the Pallas
+kernel's finite -2e38), output cast back to q's dtype; the SSD scan in
+f32, chunk by chunk; the grouped matmul in f32, cast back to x's dtype
+(and the gated pair of two of them). The kernel wrappers run these on
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,11 +33,15 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
 
 
 def decode_attention_ref(q, k, v, valid):
-    """q: (B,1,K,G,hd); k,v: (B,T,K,hd); valid: (T,) bool -> (B,1,K,G,hd)."""
+    """q: (B,1,K,G,hd); k,v: (B,T,K,hd); valid: (T,) bool -> (B,1,K,G,hd).
+
+    Invalid slots score the Pallas kernel's finite NEG_INF = -2e38, not
+    -inf: the same result for any mask with a valid slot, and the mean of
+    V, not NaN, for an all-false mask."""
     hd = q.shape[-1]
     scale = 1.0 / (hd ** 0.5)
     s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
-    s = s.masked_fill(~valid, float("-inf"))
+    s = s.masked_fill(~valid, -2.0e38)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.to(q.dtype)

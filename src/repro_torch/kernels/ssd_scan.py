@@ -19,9 +19,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (head_dim, state size) pairs the kernel is built for: mamba2-2.7b's and
-# its reduced test config's
-SHAPES = ((64, 128), (32, 64))
+# (head_dim, state size) pairs the kernel is built for: mamba2-2.7b's,
+# jamba-v0.1-52b's, and their reduced test configs'
+SHAPES = ((64, 128), (32, 64), (64, 16), (32, 16))
 
 launches = 0  # kernel launches since the last reset (plain runs excluded)
 

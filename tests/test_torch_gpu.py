@@ -101,6 +101,75 @@ def test_decode_kernel_on_card(cuda, B, T, K, G, hd, pos, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pos", [300, 5000])     # partly filled, wrapped
+def test_decode_kernel_shapes_on_card(cuda, hd, G, dtype, pos):
+    """Every head_dim and group size the configs use."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + G)
+    T = 777
+    q = torch.randn((3, 1, 2, G, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((3, T, 2, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((3, T, 2, hd), generator=gen, device=cuda).to(dtype)
+    valid = torch.arange(T, device=cuda) <= pos
+    out = tda.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    want = tref.decode_attention_ref(q, k, v, valid)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,G", [(128, 8), (256, 1), (64, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_all_false_mask_on_card(cuda, hd, G, dtype):
+    """An all-false mask gives the mean of V, as the Pallas kernel does."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((2, 1, 2, G, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, 300, 2, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, 300, 2, hd), generator=gen, device=cuda).to(dtype)
+    valid = torch.zeros(300, dtype=torch.bool, device=cuda)
+    out = tda.decode_attention(q, k, v, valid)
+    want = v.float().mean(dim=1)[:, None, :, None, :].expand(q.shape)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
+
+
+@pytest.mark.gpu
+def test_decode_kernel_cuda_graph_and_one_launch(cuda):
+    """One kernel a call (torch.profiler sees one CUDA kernel event per
+    call), and a CUDA graph of the call replays the eager output bit for
+    bit: no host synchronisation, no per-call scratch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((8, 1, 2, 8, 128), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((8, 1024, 2, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((8, 1024, 2, 128), generator=gen, device=cuda).bfloat16()
+    valid = torch.arange(1024, device=cuda) <= 600
+    eager = tda.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            tda.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tda.decode_attention(q, k, v, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.decode_attention(q, k, v, valid)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b"])
 def test_engine_on_card_goes_through_kernels(cuda, arch):
     """A reduced bf16 model served on the card: every prefill and decode
@@ -164,6 +233,11 @@ def ssd_inputs(gen, nc, B, Q, nh, hd, N, G, dtype, h0_scale):
     (3, 2, 64, 16, 32, 64, 1),      # reduced mamba2
     (2, 3, 100, 8, 32, 64, 2),      # ragged tiles, grouped
     (1, 2, 16, 4, 64, 128, 4),      # B and C per head (G = nh)
+    (2, 2, 300, 8, 64, 128, 2),     # chunks longer than the 256-row sub-chunks
+    (3, 2, 100, 8, 64, 16, 1),      # jamba-v0.1-52b's (64, 16), ragged tiles
+    (1, 2, 237, 8, 64, 16, 2),      # one ragged chunk, grouped
+    (2, 3, 77, 4, 32, 16, 1),       # jamba reduced (32, 16)
+    (3, 2, 64, 8, 32, 16, 2),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h0_scale", [0.0, 0.5])

@@ -84,6 +84,8 @@ def test_flash_plain_ragged_lengths(S, causal, window):
     (1, 256, 1, 8, 128, 10),
     (4, 64, 4, 1, 64, 63),
     (2, 128, 2, 4, 64, 300),       # ring wrapped: every slot valid
+    (2, 128, 2, 1, 256, 70),       # head_dim 256 (gemma-7b), one head a KV head
+    (2, 192, 1, 7, 128, 130),      # 7 query heads a KV head (llava)
 ])
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
 def test_decode_plain_matches_jax(B, T, K, G, hd, pos, dtype):
@@ -102,15 +104,45 @@ def test_decode_plain_matches_jax(B, T, K, G, hd, pos, dtype):
     assert rel_err(out, pallas) < TOL_PALLAS[dtype]
 
 
-@pytest.mark.parametrize("B,K,T", [(8, 2, 1024), (1, 1, 64), (1, 2, 100),
-                                   (64, 16, 4096), (8, 2, 33)])
-def test_decode_split_covers_cache(B, K, T):
-    sl = tda.split_len(B, K, T)
-    n_split = -(-T // sl)
-    assert sl % tda.TILE == 0
-    assert (n_split - 1) * sl < T <= n_split * sl   # no empty split
+def test_decode_all_false_mask_gives_mean_of_v():
+    """On an all-false mask the Pallas kernel (interpret mode) returns the
+    mean of V over the cache: its NEG_INF is finite, so every weight is
+    exp(0) = 1. The port's plain version (the CPU side of the wrapper)
+    keeps that contract, which the card tests hold the kernel to."""
+    rng = np.random.default_rng(7)
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng, 2, 1, 2, 4, 64, dtype=jnp.float32),
+                                    both(rng, 2, 128, 2, 64, dtype=jnp.float32),
+                                    both(rng, 2, 128, 2, 64, dtype=jnp.float32))
+    valid = np.zeros(128, bool)
+    mean_v = np.asarray(vj).mean(axis=1)[:, None, :, None, :]   # (B,1,K,1,hd)
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(valid), block_k=64)
+    np.testing.assert_allclose(np.asarray(pallas),
+                               np.broadcast_to(mean_v, pallas.shape), atol=1e-6)
+    out = tda.decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    assert rel_err(out, pallas) < 1e-6
+
+
+@pytest.mark.parametrize("B,K,T,pos", [(8, 2, 1024, 600), (8, 16, 1024, 600),
+                                       (1, 1, 64, 0), (1, 2, 100, 5000),
+                                       (64, 16, 4096, 4000), (8, 2, 33, -1),
+                                       (3, 1, 1000, 130)])
+def test_decode_launch_plan_covers_cache(B, K, T, pos):
+    """The launch planner: a cluster of at most 8 blocks per (batch, KV
+    head), no more blocks than tiles, about two blocks an SM where B*K
+    leaves room. The kernel selects the 64-key tiles with a valid slot
+    (all of them for an all-false mask) and deals them out in order, tiles
+    [r*n/ns, (r+1)*n/ns) to block r: each selected tile exactly once, no
+    block empty where there are as many tiles as blocks."""
+    ns = tda.n_splits(B, K, T)
     tiles = -(-T // tda.TILE)
-    assert n_split * B * K >= min(tda.TARGET_BLOCKS, tiles * B * K)
+    assert 1 <= ns <= min(tda.MAX_SPLIT, tiles)
+    assert ns * B * K <= max(B * K, tda.BLOCKS_PER_SM * 132)
+    valid = np.arange(T) <= pos
+    n_sel = sum(valid[t * 64:(t + 1) * 64].any() for t in range(tiles)) or tiles
+    ranges = [(r * n_sel // ns, (r + 1) * n_sel // ns) for r in range(ns)]
+    assert [i for lo, hi in ranges for i in range(lo, hi)] == list(range(n_sel))
+    if n_sel >= ns:
+        assert all(hi > lo for lo, hi in ranges)
 
 
 def _ssd_inputs(rng, nc, B, Q, nh, hd, N, G):
@@ -139,6 +171,8 @@ def _ssd_inputs(rng, nc, B, Q, nh, hd, N, G):
     (8, 1, 16, 1, 64, 128, 1),
     (2, 2, 32, 4, 32, 16, 2),      # B and C grouped: 2 heads a group
     (1, 2, 37, 4, 16, 8, 1),       # one ragged chunk, one group
+    (2, 2, 64, 4, 64, 16, 1),      # jamba-v0.1-52b's (head_dim, state)
+    (3, 1, 48, 4, 32, 16, 2),      # and its reduced config's
 ])
 def test_ssd_plain_matches_jax(nc, B, Q, nh, hd, N, G):
     """The plain scan (the wrapper on CPU tensors) against the JAX oracle
