@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Five phases; any failure raises and the exit code is non-zero.
+Nine phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -64,7 +64,34 @@ Five phases; any failure raises and the exit code is non-zero.
    Measures each step's footprint (``measure_footprint``) and checks that
    ``LibHas`` refuses a budget one byte below it. Then the same profile.
 
-The kernels phase also holds ``decode_attention`` at head_dim 64, 128
+6.-9. Serving gemma-7b, command-r-35b, llava-next-34b and whisper-medium,
+   each at full width and depth with random bf16 weights from ``--seed``,
+   after the earlier phase's model is freed (the memory still allocated is
+   printed), at quota 1.0: gemma (head_dim 256) and command-r (8 query
+   heads a KV head), 16 requests in two batches of 8 with prompts of
+   64-512 tokens (one of 512) and 64-437 (one of 437), ``max_seq`` 1024;
+   llava, 8 requests in two batches of 4 whose text of 16-128 tokens (one
+   of 128) and 16-77 (one of 77) follows 2880 visual tokens (zeros, as the
+   engine sends), ``max_seq`` 3072, so flash runs at S = 2880 + L and
+   decode starts at position 2880 + L; whisper, 16 requests in two batches
+   of 8 with prompts of 8-64 (one of 64) and 8-37 (one of 37) over 1500
+   frames (zeros), ``max_seq`` 1024. Checks output lengths and finite
+   logits, that every prefill launched flash once a layer (whisper: 24
+   non-causal encoder launches and 24 causal decoder ones) and every decode
+   step decode_attention once a decoder layer, each step's footprint and
+   LibHas refusing a budget one byte below it, and profiles a prefill and a
+   decode step. Then, on random tokens and random visual or frame
+   embeddings, every flash launch of a prefill against the kernel's plain
+   version on the same input (bf16, <= 3e-2), and the prefill logits
+   through the kernels against plain attention (<= 3e-2; llava at batch 1,
+   where the plain path holds 2 GB of f32 scores a layer).
+
+The kernels phase also holds ``flash_attention`` at those families'
+shapes (gemma's head_dim 256, whisper's non-causal encoder over 1500
+frames, llava's 7 query heads a KV head at S = 3008) in bf16 and f32 and
+times kernel, plain and SDPA there, and holds and times
+``decode_attention`` at gemma's (8, 1, 16, 1, 256) over a 1024-slot ring.
+It also holds ``decode_attention`` at head_dim 64, 128
 and 256 with 1, 7 and 8 query heads a KV head over a partly filled and a
 wrapped ring, and on an all-false mask against the mean of V (the Pallas
 kernel's result); ``ssd_chunk_scan`` at mamba2's shapes, at chunks of 300
@@ -83,7 +110,8 @@ reference's one-hot dispatch promotes a bf16 model's tokens to f32; x
 and w f32, an f32 model), and both attention kernels at
 deepseek's 16 heads of 128 with one query head a KV head.
 
-The line before the last is the kernels record as JSON; the last line is
+The line before the last is the kernels record as JSON (each kernel's
+launches summed over every served phase); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -108,6 +136,20 @@ K, G, HD = 2, 8, 128  # qwen2.5-3b attention: 2 KV heads x 8 query heads
 NH, SG, SHD, SN = 80, 8, 64, 128  # mamba2-2.7b SSD: heads, groups, head_dim, state
 JAMBA_SSD = (128, 1, 64, 16)      # jamba-v0.1-52b's SSD layer, the same order
 ME, MD, MF = 64, 2048, 1408       # deepseek-moe-16b: experts, d_model, expert d_ff
+# the phases of the other served families: (arch, batch, max_seq, the
+# batches' prompt lengths (lo, hi, longest), rows of the logits check)
+FAMILIES = (
+    ("gemma-7b", 8, 1024, ((64, 512, 512), (64, 437, 437)), 8),
+    ("command-r-35b", 8, 1024, ((64, 512, 512), (64, 437, 437)), 8),
+    ("llava-next-34b", 4, 3072, ((16, 128, 128), (16, 77, 77)), 1),
+    ("whisper-medium", 8, 1024, ((8, 64, 64), (8, 37, 37)), 8),
+)
+# flash at the served shapes of those families: (B, S = T, K, G, hd, causal)
+FAMILY_FLASH = (
+    ("gemma-7b prefill", (8, 512, 16, 1, 256, True)),
+    ("whisper-medium encoder", (8, 1500, 16, 1, 64, False)),
+    ("llava-next-34b prefill", (4, 3008, 8, 7, 128, True)),
+)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -125,6 +167,14 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def flash_work(B, S, T, K, G, hd, causal):
+    """(operations, bytes) flash must do for these inputs: the (query, key)
+    pairs the masks keep (causal: at S = T, the lower triangle), q, k, v
+    read once and o written once in bf16."""
+    pairs = B * K * G * (S * (S + 1) // 2 if causal else S * T)
+    return 4 * hd * pairs, 2 * (2 * B * S * K * G * hd + 2 * B * T * K * hd)
 
 
 def fmt_ms(t):
@@ -403,9 +453,7 @@ def phase_kernels(seed):
     k, v = randn(B, S, K, HD, dtype=bf), randn(B, S, K, HD, dtype=bf)
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, HD).contiguous()
     kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
-    pairs = B * K * G * S * (S + 1) // 2               # causal (q, k) pairs
-    flops = 4 * HD * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops, nbytes = flash_work(B, S, S, K, G, HD, True)
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -421,8 +469,11 @@ def phase_kernels(seed):
     def device_ms(fn, n=10):
         """Mean device time of ``fn``'s kernels over ``n`` calls, in ms,
         from torch.profiler (free of the host's launch rate)."""
-        busy = device_busy_ms(lambda: [fn() for _ in range(n)])[0]
-        return None if busy is None else busy / n
+        busy, why, _ = device_busy_ms(lambda: [fn() for _ in range(n)], n)
+        if busy is None:
+            print(f"[kernels] device time not measured: {why}")
+            return None
+        return busy / n
 
     def graph_ms(fn, n=20, replays=10):
         """Mean time of one ``fn`` call in ms, from CUDA events around
@@ -458,6 +509,42 @@ def phase_kernels(seed):
                   "not measured" if t is None else f"{t:.4f}"
                   for t in times[2:]) + " ms")
     del q16, k16, v16, q16h, k16h, v16h
+    # the other served families' shapes: gemma-7b's head_dim 256,
+    # whisper-medium's non-causal encoder over 1500 frames, llava-next-34b's
+    # 7 query heads a KV head after 2880 visual tokens; held in bf16 and f32,
+    # then timed in bf16
+    for label, (b, s, nkv, g, hd, causal) in FAMILY_FLASH:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q = randn(b, s, nkv, g, hd, dtype=dtype)
+            k, v = (randn(b, s, nkv, hd, dtype=dtype) for _ in range(2))
+            hold("flash_attention", f"{label} q {tuple(q.shape)} "
+                 f"{'causal' if causal else 'non-causal'}",
+                 fa.flash_attention(q, k, v, causal=causal),
+                 ref.flash_attention_ref(q, k, v, causal=causal), dname)
+        qh = q.bfloat16().reshape(b, s, nkv * g, hd).transpose(1, 2).contiguous()
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        kh_, vh_ = (t.transpose(1, 2).contiguous() for t in (k, v))
+        flops, nbytes = flash_work(b, s, s, nkv, g, hd, causal)
+        bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+        by = "operations" if flops / PEAK_BF16 >= nbytes / PEAK_BW else "bytes"
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        def lib():
+            return sdpa(qh, kh_, vh_, is_causal=causal)
+
+        print(f"[kernels] flash_attention bf16 {label} q {tuple(q.shape)} "
+              f"{'causal' if causal else 'non-causal'}: CUDA events kernel "
+              f"{cuda_ms(kern, 20):.4f} ms, plain "
+              f"{cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3):.4f}"
+              f" ms, scaled_dot_product_attention {cuda_ms(lib, 20):.4f} ms; "
+              f"torch.profiler device time kernel {fmt_ms(device_ms(kern))}, "
+              f"scaled_dot_product_attention {fmt_ms(device_ms(lib))}; bound "
+              f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+        del q, k, v, qh, kh_, vh_
     T, pos = 1024, 600
     valid = torch.arange(T, device="cuda") <= pos
     n_valid = pos + 1
@@ -483,32 +570,37 @@ def phase_kernels(seed):
                                20),
         "graph_ms": graph_ms(lambda: da.decode_attention(q, k, v, valid)),
     }
-    # deepseek's shape: 16 KV heads of one query head
-    q16 = randn(B, 1, 16, 1, HD, dtype=bf)
-    k16, v16 = (randn(B, T, 16, HD, dtype=bf) for _ in range(2))
-    k16h, v16h = (t.permute(0, 2, 1, 3).contiguous() for t in (k16, v16))
-    q16h = q16.reshape(B, 16, 1, HD)
-    nbytes = 2 * (2 * q16.numel() + 2 * B * n_valid * 16 * HD) + T
-    bound = max(4 * HD * B * 16 * n_valid / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+    # deepseek's shape (16 KV heads of one query head, head_dim 128) and
+    # gemma-7b's (head_dim 256)
+    for hd in (HD, 256):
+        q16 = randn(B, 1, 16, 1, hd, dtype=bf)
+        k16, v16 = (randn(B, T, 16, hd, dtype=bf) for _ in range(2))
+        k16h, v16h = (t.permute(0, 2, 1, 3).contiguous() for t in (k16, v16))
+        q16h = q16.reshape(B, 16, 1, hd)
+        nbytes = 2 * (2 * q16.numel() + 2 * B * n_valid * 16 * hd) + T
+        bound = max(4 * hd * B * 16 * n_valid / PEAK_BF16,
+                    nbytes / PEAK_BW) * 1e3
 
-    def kern16():
-        return da.decode_attention(q16, k16, v16, valid)
+        def kern16():
+            return da.decode_attention(q16, k16, v16, valid)
 
-    def plain16():
-        return ref.decode_attention_ref(q16, k16, v16, valid)
+        def plain16():
+            return ref.decode_attention_ref(q16, k16, v16, valid)
 
-    def sdpa16():
-        return sdpa(q16h, k16h, v16h, attn_mask=mask)
+        def sdpa16():
+            return sdpa(q16h, k16h, v16h, attn_mask=mask)
 
-    print(f"[kernels] decode_attention bf16 q ({B},1,16,1,{HD}), k/v "
-          f"({B},{T},16,{HD}), {n_valid} of {T} slots valid: CUDA events "
-          f"{cuda_ms(kern16, 50):.4f} ms, torch.profiler device time "
-          f"{fmt_ms(device_ms(kern16, 20))}, CUDA graph of 20 calls "
-          f"{graph_ms(kern16):.4f} ms a call; plain "
-          f"{cuda_ms(plain16, 20):.4f} ms, scaled_dot_product_attention "
-          f"{cuda_ms(sdpa16, 50):.4f} ms "
-          f"(device {fmt_ms(device_ms(sdpa16, 20))}), bound {bound:.4f} ms "
-          f"(bytes; {nbytes / 1e6:.1f} MB)")
+        hold("decode_attention", f"q ({B},1,16,1,{hd}) k/v ({B},{T},16,{hd})"
+             f" pos{pos}", kern16(), plain16(), "bfloat16")
+        print(f"[kernels] decode_attention bf16 q ({B},1,16,1,{hd}), k/v "
+              f"({B},{T},16,{hd}), {n_valid} of {T} slots valid: CUDA events "
+              f"{cuda_ms(kern16, 50):.4f} ms, torch.profiler device time "
+              f"{fmt_ms(device_ms(kern16, 20))}, CUDA graph of 20 calls "
+              f"{graph_ms(kern16):.4f} ms a call; plain "
+              f"{cuda_ms(plain16, 20):.4f} ms, scaled_dot_product_attention "
+              f"{cuda_ms(sdpa16, 50):.4f} ms "
+              f"(device {fmt_ms(device_ms(sdpa16, 20))}), bound {bound:.4f} ms "
+              f"(bytes; {nbytes / 1e6:.1f} MB)")
     del q16, k16, v16, k16h, v16h
     nc, Q = 2, 256
     args = ssd_inputs(nc, Q, bf, 0.0)
@@ -650,11 +742,11 @@ def n_params(tree):
     return tree.numel()
 
 
-def serving_pod(cfg, fn_id, seed, quota):
+def serving_pod(cfg, fn_id, seed, quota, batch=8, max_seq=1024):
     """Random full-width weights from ``seed`` on the card, and a Gateway
-    with one PodEngine (batch 8 on 4 of 8 slices of an h100 vGPU,
-    ``max_seq`` 1024) whose steps record their wall time and whether their
-    logits are finite. Returns (gateway, engine, vgpu, record)."""
+    with one PodEngine (``batch`` on 4 of 8 slices of an h100 vGPU, a KV
+    ring of ``max_seq``) whose steps record their wall time and whether
+    their logits are finite. Returns (gateway, engine, vgpu, record)."""
     import torch
     from repro_torch import models
     from repro_torch.configs.gpus import get_gpu_type
@@ -669,9 +761,9 @@ def serving_pod(cfg, fn_id, seed, quota):
           f"{cfg.d_model}, {n_params(params) / 1e9:.3f} B params "
           f"({cfg.dtype}), init {time.perf_counter() - t0:.1f} s")
     vgpu = VirtualGPU(f"GPU-{fn_id}", gpu_type=get_gpu_type("h100"))
-    pod = PodAlloc(fn_id=fn_id, sm=4, quota=quota, batch=8)
+    pod = PodAlloc(fn_id=fn_id, sm=4, quota=quota, batch=batch)
     vgpu.place(pod)
-    engine = PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=1024,
+    engine = PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=max_seq,
                        params=params)
     gw = Gateway()
     gw.register(fn_id, engine)
@@ -723,22 +815,51 @@ def check_finite(record):
         raise AssertionError("non-finite logits on the serving path")
 
 
-def check_prefill_logits(params, cfg, toks):
+def served_batch(engine, cfg, rng, B, L):
+    """A prefill batch as the engine builds it, with random tokens and, for
+    the checks, random stand-ins of the stubbed frontends (N(0, 0.02^2),
+    the text embedding's scale) where the engine sends zeros."""
+    import torch
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, size=(B, L)), device="cuda")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(2**31)))
+    for key, x in engine._extra_inputs(B).items():
+        batch[key] = (torch.randn(x.shape, generator=gen, device="cuda")
+                      * 0.02).to(x.dtype)
+    return batch
+
+
+def check_prefill_logits(engine, cfg, batch):
     """One batch's prefill logits through the kernels against plain
     attention on the same weights (max rel err <= SERVE_TOL)."""
+    import torch
     from repro_torch import models
     from repro_torch.models import CallOpts
-    got, _ = models.prefill(params, cfg, {"tokens": toks}, 1024,
+    got, _ = models.prefill(engine.params, cfg, batch, engine.max_seq,
                             CallOpts(use_kernels=True))
-    plain, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, CallOpts())
+    plain, _ = models.prefill(engine.params, cfg, batch, engine.max_seq,
+                              CallOpts())
     diff, rel = errors(got, plain)
-    B, L = toks.shape
-    print(f"[serving] {cfg.name} prefill logits B={B} L={L}, kernels vs "
-          f"plain attention: max abs err {diff:.3g}, max rel err {rel:.3g} "
-          f"(tol {SERVE_TOL})")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name} prefill logits are not finite")
+    B, L = batch["tokens"].shape
+    print(f"[serving] {cfg.name} prefill logits B={B} L={L}"
+          f"{prefix_note(cfg)}, kernels vs plain attention: max abs err "
+          f"{diff:.3g}, max rel err {rel:.3g} (tol {SERVE_TOL})")
     if not rel <= SERVE_TOL:
         raise AssertionError(f"{cfg.name} prefill logits rel err {rel} > "
                              f"{SERVE_TOL}")
+
+
+def prefix_note(cfg):
+    """What precedes the text of a prefill: a VLM's visual tokens, an
+    encoder-decoder's frames."""
+    if cfg.num_visual_tokens:
+        return f" after {cfg.num_visual_tokens} visual tokens"
+    if cfg.is_encoder_decoder:
+        return f" over {cfg.encoder_seq} frames"
+    return ""
 
 
 def check_ssm_prefill(params, cfg, toks):
@@ -805,21 +926,31 @@ def check_ssm_prefill(params, cfg, toks):
                              f"{TOL['float32']}")
 
 
-def profile_steps(params, cfg, toks, record):
+def profile_steps(engine, cfg, batch, record):
     """Device busy time of one prefill and one decode step under
     torch.profiler, against the steps' median wall time from the serving
-    run (the device's idle share)."""
+    run and the wall time of the same step unprofiled just before (the
+    device's idle share: the served walls ran earlier, and the card's
+    clock under a long run of GEMMs may differ between the two)."""
+    import torch
     from repro_torch import models
     from repro_torch.models import CallOpts
     opts = CallOpts(use_kernels=True)
+    params, toks = engine.params, batch["tokens"]
     L = toks.shape[1]
-    _, cache = models.prefill(params, cfg, {"tokens": toks}, 1024, opts)
-    tok = toks[:, -1:]
+    _, cache = models.prefill(params, cfg, batch, engine.max_seq, opts)
+    tok, pos = toks[:, -1:], (cfg.num_visual_tokens or 0) + L
     for key, fn in (
-            ("prefill", lambda: models.prefill(params, cfg, {"tokens": toks},
-                                               1024, opts)),
-            ("decode", lambda: models.decode_step(params, cfg, tok, L, cache,
-                                                  opts=opts))):
+            ("prefill", lambda: models.prefill(params, cfg, batch,
+                                               engine.max_seq, opts)),
+            ("decode", lambda: models.decode_step(params, cfg, tok, pos,
+                                                  cache, opts=opts))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        now = (time.perf_counter() - t) * 1e3
         busy, top, ops = device_busy_ms(fn)
         # the wall of the served prefills of this length, where there are any
         same = [ms for ms, n in zip(record["prefill"], record["prefill_len"])
@@ -831,8 +962,9 @@ def profile_steps(params, cfg, toks, record):
                   f"({top})")
             continue
         print(f"[profile] {cfg.name} {key} step: device busy {busy:.2f} ms "
-              f"of {wall:.2f} ms median wall (idle share "
-              f"{1 - busy / wall:.3f}); top kernels: "
+              f"of {wall:.2f} ms median served wall (idle share "
+              f"{1 - busy / wall:.3f}) and of {now:.2f} ms wall unprofiled "
+              f"just before (idle share {1 - busy / now:.3f}); top kernels: "
               + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top))
         print(f"[profile] {cfg.name} {key} step: top operators by their own "
               f"device time: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in ops))
@@ -879,10 +1011,9 @@ def phase_serving(seed):
     print(f"[serving] torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
-                           device="cuda")
-    check_prefill_logits(engine.params, cfg, toks)
-    profile_steps(engine.params, cfg, toks, record)
+    batch = served_batch(engine, cfg, rng, 8, 512)
+    check_prefill_logits(engine, cfg, batch)
+    profile_steps(engine, cfg, batch, record)
     return launches
 
 
@@ -951,7 +1082,7 @@ def phase_serving_mamba2(seed):
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
                            device="cuda")
     check_ssm_prefill(engine.params, cfg, toks)
-    profile_steps(engine.params, cfg, toks, record)
+    profile_steps(engine, cfg, {"tokens": toks}, record)
     return launches
 
 
@@ -1100,16 +1231,19 @@ def check_single_group_decode(params, cfg, toks, n_moe):
                              f"(want {2 * n_moe}), {dropped} dropped")
 
 
-def check_footprints(engine, cfg, toks):
+def check_footprints(engine, cfg, batch):
     """Each step's footprint from the allocator around a warm-up call, and
     LibHas refusing a budget one byte below it."""
     from repro_torch.serving import LibHas, MemoryBudgetExceeded, measure_footprint
     from repro_torch.serving.engine import compiled_steps
     pre, dec = compiled_steps(cfg, engine.max_seq, engine.opts)
+    toks = batch["tokens"]
     L = toks.shape[1]
-    fp_pre = measure_footprint(pre, engine.params, {"tokens": toks})
-    _, cache = pre(engine.params, {"tokens": toks})
-    fp_dec = measure_footprint(dec, engine.params, toks[:, -1:], L, cache)
+    fp_pre = measure_footprint(pre, engine.params, batch)
+    _, cache = pre(engine.params, batch)
+    fp_dec = measure_footprint(dec, engine.params, toks[:, -1:],
+                               (cfg.num_visual_tokens or 0) + L, cache)
+    del cache
     for name, fp in (("prefill", fp_pre), ("decode", fp_dec)):
         need = (fp.argument_size_in_bytes + fp.temp_size_in_bytes
                 + fp.output_size_in_bytes)
@@ -1215,8 +1349,8 @@ def phase_serving_deepseek(seed):
                            device="cuda")
     check_moe_prefill(engine.params, cfg, toks)
     check_single_group_decode(engine.params, cfg, toks, n_moe)
-    check_footprints(engine, cfg, toks)
-    profile_steps(engine.params, cfg, toks, record)
+    check_footprints(engine, cfg, {"tokens": toks})
+    profile_steps(engine, cfg, {"tokens": toks}, record)
     del gw, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1224,32 +1358,171 @@ def phase_serving_deepseek(seed):
     return launches
 
 
-def device_busy_ms(fn):
+def check_flash_layers(engine, cfg, batch):
+    """Each flash launch of a prefill through the kernels, held against
+    the kernel's plain version on the same inputs (bf16, <= SERVE_TOL):
+    the wrapper below returns the plain result, so every layer's attention
+    sees the input of the stack with plain attention cores."""
+    from repro_torch import models
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.models import CallOpts, attention
+    worst = []
+    kernel = fa.flash_attention
+
+    def both(q, k, v, *, causal=True, window=0):
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        worst.append((errors(kernel(q, k, v, causal=causal, window=window),
+                             want)[1], causal))
+        return want
+
+    attention.fa.flash_attention = both
+    try:
+        models.prefill(engine.params, cfg, batch, engine.max_seq,
+                       CallOpts(use_kernels=True))
+    finally:
+        attention.fa.flash_attention = kernel
+    errs = [e for e, _ in worst]
+    B, L = batch["tokens"].shape
+    kinds = sorted({"causal" if c else "non-causal" for _, c in worst})
+    print(f"[serving] {cfg.name} each flash launch of a prefill B={B} L={L}"
+          f"{prefix_note(cfg)} ({len(errs)}: {' and '.join(kinds)}), kernel "
+          f"vs plain on the same input, bf16: max rel err {max(errs):.3g}, "
+          f"median {statistics.median(errs):.3g} (tol {SERVE_TOL})")
+    if not max(errs) <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name} flash layer rel err {max(errs)} > "
+                             f"{SERVE_TOL}")
+
+
+def phase_serving_family(seed, arch, batch, max_seq, batches, check_rows):
+    """Serve one batch of requests per entry of ``batches`` (the prompt
+    lengths: ``(lo, hi, longest)``) of the full-width, full-depth ``arch``,
+    each step's flash and decode launches counted; then the checks of the
+    module docstring. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = ARCHS[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serving] before {cfg.name}: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    fn_id = f"fn-{arch}"
+    gw, engine, vgpu, record = serving_pod(cfg, fn_id, seed, 1.0, batch,
+                                           max_seq)
+    rng = np.random.default_rng(seed + len(arch))
+    per_step = {"prefill": [], "decode": []}
+
+    def counted(fn, key):
+        def run(*args):
+            before = fa.launches, da.launches
+            out = fn(*args)
+            per_step[key].append((fa.launches - before[0],
+                                  da.launches - before[1]))
+            return out
+        return run
+
+    engine._prefill = counted(engine._prefill, "prefill")
+    engine._decode = counted(engine._decode, "decode")
+
+    def prompts(lo, hi, longest):
+        lengths = rng.integers(lo, hi + 1, size=batch)
+        lengths[int(rng.integers(batch))] = longest
+        return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in lengths]
+
+    fa.launches = da.launches = 0
+    lat = [serve(gw, fn_id, cfg, prompts(*b)) for b in batches]
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    n_pre, n_dec = len(record["prefill"]), len(record["decode"])
+    check_finite(record)
+    # an encoder-decoder's prefill runs the encoder (non-causal) and the
+    # decoder (causal) through flash; decode runs the decoder
+    n_flash = cfg.num_layers + (cfg.encoder_layers
+                                if cfg.is_encoder_decoder else 0)
+    want = {"flash_attention": n_flash * n_pre,
+            "decode_attention": cfg.num_layers * n_dec}
+    longest = [b[2] for b in batches]
+    if (launches != want or record["prefill_len"] != longest
+            or set(per_step["prefill"]) != {(n_flash, 0)}
+            or set(per_step["decode"]) != {(0, cfg.num_layers)}):
+        raise AssertionError(f"kernel launches {launches}, want {want}; per "
+                             f"step (flash, decode) "
+                             f"{sorted(set(per_step['prefill']))} a prefill "
+                             f"at lengths {record['prefill_len']}, "
+                             f"{sorted(set(per_step['decode']))} a decode")
+    v = cfg.num_visual_tokens or 0
+    print(f"[serving] {n_pre} prefills at text lengths "
+          f"{record['prefill_len']}{prefix_note(cfg)}, {n_dec} decode steps "
+          f"(from position {', '.join(str(v + n) for n in longest)}); "
+          f"launches {launches}; every prefill launched flash {n_flash} times"
+          f" and every decode step decode_attention {cfg.num_layers} times")
+    print(f"[serving] per-request wall time at quota 1.0: "
+          + ", ".join(f"{t * 1e3:.1f} ms (batch {i + 1})"
+                      for i, t in enumerate(lat)))
+    print(f"[serving] prefill step ms: "
+          + ", ".join(f"{ms:.2f} (L={n})" for ms, n in
+                      zip(record["prefill"], record["prefill_len"]))
+          + f"; decode step ms (median of {n_dec}): "
+          f"{statistics.median(record['decode']):.2f}")
+    print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
+          f"run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    served = served_batch(engine, cfg, rng, batch, longest[0])
+    check_footprints(engine, cfg, served)
+    profile_steps(engine, cfg, served, record)
+    rows = served_batch(engine, cfg, rng, check_rows, longest[0])
+    check_flash_layers(engine, cfg, rows)
+    check_prefill_logits(engine, cfg, rows)
+    print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
+          f"phase: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del gw, engine, served, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def device_busy_ms(fn, launches=1, attempts=3):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
-    operators whose own kernels took most), or (None, reason, None)."""
+    operators whose own kernels took most), or (None, reason, None).
+    A trace with fewer kernels than ``fn`` is known to launch is
+    incomplete (the profiler drops events now and then) and is taken
+    again, up to ``attempts`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / 1e3)
-        by_op = {e.key: getattr(e, "self_device_time_total", 0) / 1e3
-                 for e in prof.key_averages() if e.key.startswith("aten::")}
-        by_op = {k: ms for k, ms in by_op.items() if ms}
-    except (RuntimeError, AttributeError) as err:
-        return None, f"profiler failed: {err}", None
-    if not by_name:
-        return None, "the profiler recorded no CUDA kernels", None
+    why = "no attempt"
+    for _ in range(attempts):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            by_name, n = {}, 0
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    n += 1
+                    by_name[e.name] = (by_name.get(e.name, 0.0)
+                                       + e.time_range.elapsed_us() / 1e3)
+            by_op = {e.key: getattr(e, "self_device_time_total", 0) / 1e3
+                     for e in prof.key_averages()
+                     if e.key.startswith("aten::")}
+            by_op = {k: ms for k, ms in by_op.items() if ms}
+        except (RuntimeError, AttributeError) as err:
+            return None, f"profiler failed: {err}", None
+        if n >= max(launches, 1):
+            break
+        why = (f"the profiler recorded {n} CUDA kernels, fewer than the "
+               f"{launches} launched, in {attempts} attempts")
+    else:
+        return None, why, None
 
     def top(d):
         return sorted(d.items(), key=lambda kv: -kv[1])[:8]
@@ -1266,13 +1539,20 @@ def main(argv=None):
               "needs a CUDA card", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails here outside a checkout)
-    name, smi = phase_device()
+    kind, smi = phase_device()
     records = phase_kernels(args.seed)
     launches = phase_serving(args.seed)
     launches["ssd_chunk_scan"] = phase_serving_mamba2(args.seed)[
         "ssd_chunk_scan"]
     moe = phase_serving_deepseek(args.seed)
     launches["gmm"], launches["gmm_gated"] = moe["gmm"], moe["gmm_gated"]
+    for kernel in ("flash_attention", "decode_attention"):
+        launches[kernel] += moe[kernel]
+    for arch, batch, max_seq, batches, rows in FAMILIES:
+        counts = phase_serving_family(args.seed, arch, batch, max_seq,
+                                      batches, rows)
+        for kernel, n in counts.items():
+            launches[kernel] += n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "graph_ms")
@@ -1282,7 +1562,7 @@ def main(argv=None):
                                   for rec in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

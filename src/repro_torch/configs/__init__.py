@@ -1,17 +1,21 @@
-"""Config registry of the port: the architectures its slices serve, the
-input-shape dataclass, and the GPU-type catalogue (copies of the JAX
-package's ``configs/``). Further architectures arrive with the slices
-that bring their layers (the encoder-decoder and VLM families)."""
+"""Config registry of the port: every architecture of the JAX package's
+``configs/`` (the dense, MoE, SSM, hybrid, VLM and encoder-decoder
+families), the input-shape dataclass, and the GPU-type catalogue (copies
+of the JAX package's modules). ``configs/shapes.py`` is not copied yet:
+nothing on the serving path reads it."""
 from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig, ShapeConfig, reduced
 from repro_torch.configs.gpus import (DEFAULT_GPU_TYPE, GPU_TYPES, GPUType,
                                       fleet_from_names, get_gpu_type)
 
-from repro_torch.configs import (dbrx_132b, deepseek_moe_16b, jamba_v0p1_52b,
-                                 mamba2_2p7b, olmo_1b, qwen2p5_3b)
+from repro_torch.configs import (command_r_35b, dbrx_132b, deepseek_moe_16b,
+                                 gemma_7b, jamba_v0p1_52b, llava_next_34b,
+                                 mamba2_2p7b, olmo_1b, qwen2p5_3b,
+                                 whisper_medium)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
          for m in (qwen2p5_3b, olmo_1b, mamba2_2p7b, deepseek_moe_16b,
-                   dbrx_132b, jamba_v0p1_52b)}
+                   dbrx_132b, jamba_v0p1_52b, gemma_7b, command_r_35b,
+                   llava_next_34b, whisper_medium)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -41,11 +41,20 @@
 // zero-fills boxes past T; those keys are still masked to -inf, so a zero
 // key is never a key. At the serving shape the kernel is bound by moving
 // its tiles: the K/V tiles that work tiles read again come from L2.
+// head_dim 256 (gemma-7b) takes another budget, as FlashAttention-3 does
+// at that width: K/V tiles of 64 keys (32 KB each, two stages: 128 KB),
+// one Q buffer (64 KB) through which O is also stored, about 193 KB in all
+// (the layout above would need ~448 KB against the 227 KB a block may
+// have). A consumer thread then holds 128 f32 of O (two m64n128 halves of
+// the P V product) and 32 of S. With one Q buffer the producer loads a
+// work tile's first K/V tiles before its Q, while the consumers still
+// store the last tile's O through that buffer.
 // f32: `flash_fwd_f32`, the products as f32 FMAs from shared memory (the
 // tensor cores would round f32 inputs to tf32 or bf16, outside the 1e-4
 // tolerance); each of 256 threads owns a 4x4 patch of the score tile and a
-// 4 x hd/16 patch of the output, tiles padded by one word per row. It
-// serves the f32 tests and stacks, not the served bf16 models.
+// 4 x hd/16 patch of the output, tiles padded by one word per row (213,760
+// bytes of shared memory at head_dim 256). It serves the f32 tests and
+// stacks, not the served bf16 models.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -222,24 +231,29 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int NCW = 2;  // consumer warpgroups
 constexpr int WBM = 64 * NCW;  // query rows of a block: 64 a consumer
-constexpr int WBN = 128;  // keys of a K/V tile
 constexpr int WST = 2;    // stages of the K/V ring
 constexpr int WNT = 128 * (NCW + 1);  // threads: consumers + 1 producer
 // registers a thread of the producer and of the consumers keep: 64K an SM
 constexpr int PROD_REGS = 40;
 constexpr int CONS_REGS = 232;
 
-// shared memory, in bytes from a 1024-aligned base: two Q buffers (hd/64
-// boxes of 128 rows x 128 B), per stage K and V (hd/64 boxes of 128 keys x
-// 128 B each), O (laid out as Q), then the barriers
+// shared memory, in bytes from a 1024-aligned base: QBUF Q buffers (hd/64
+// boxes of 128 rows x 128 B), per stage K and V (hd/64 boxes of BN keys x
+// 128 B each), O (laid out as Q; with one Q buffer O is stored through it),
+// then the barriers
 template <int HD>
 struct FaLayout {
+  static constexpr int BN = HD <= 128 ? 128 : 64;  // keys of a K/V tile
+  static constexpr int QBUF = HD <= 128 ? 2 : 1;   // Q buffers
   static constexpr int Q_BYTES = WBM * HD * 2;
-  static constexpr int KV_TILE = WBN * HD * 2;
-  static constexpr int KV0 = 2 * Q_BYTES;  // Q double-buffered
-  static constexpr int O0 = KV0 + WST * 2 * KV_TILE;  // O, laid out as Q
-  static constexpr int BARS = O0 + Q_BYTES;
+  static constexpr int KV_TILE = BN * HD * 2;
+  static constexpr int KV0 = QBUF * Q_BYTES;
+  static constexpr int O0 = QBUF == 2 ? KV0 + WST * 2 * KV_TILE : 0;
+  static constexpr int BARS = KV0 + WST * 2 * KV_TILE + (QBUF == 2 ? Q_BYTES : 0);
   static constexpr int TOTAL = BARS + 8 * (4 + 3 * WST) + 1024;  // + align
+  // the P V accumulator in halves of at most 128 columns (one wgmma each)
+  static constexpr int ACC_N = HD <= 128 ? HD : 128;
+  static constexpr int NACC = HD / ACC_N;
 };
 
 template <int HD>
@@ -251,12 +265,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                int Tk, int K, int G, int GP, int causal, int window,
                float scale_log2) {
   using L = FaLayout<HD>;
+  constexpr int BN = L::BN, QBUF = L::QBUF, ACC_N = L::ACC_N;
   constexpr int NC = HD / 64;  // 64-wide column boxes of a row
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sKV = base + L::KV0;
-  // Q buffer qb of two: landed, free again; then per stage: K landed, V
+  // Q buffer qb (of QBUF): landed, free again; then per stage: K landed, V
   // landed, both free again
   auto sQ = [&](int qb) { return base + qb * L::Q_BYTES; };
   auto q_full = [&](int qb) { return base + L::BARS + 8u * qb; };
@@ -282,15 +297,17 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     int k_end = Tk;
     if (causal) k_end = min(Tk, s0 + P);
     k_begin = 0;
-    if (window && s0 - window + 1 > 0) k_begin = ((s0 - window + 1) / WBN) * WBN;
+    if (window && s0 - window + 1 > 0) k_begin = ((s0 - window + 1) / BN) * BN;
     if (k_begin >= k_end) k_begin = 0;  // nothing unmasked: keep Pallas' result
-    return (k_end - k_begin + WBN - 1) / WBN;
+    return (k_end - k_begin + BN - 1) / BN;
   };
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < QBUF; ++qb) {
       mbar_init(q_full(qb), 1);
-      mbar_init(q_empty(qb), NCW * 128);  // every consumer thread arrives
+      // two Q buffers: every consumer thread arrives after its last Q K^T;
+      // one: a thread a warpgroup, once its O store has read the buffer
+      mbar_init(q_empty(qb), QBUF == 2 ? NCW * 128 : NCW);
     }
     for (int s = 0; s < WST; ++s) {
       mbar_init(full_k(s), 1);
@@ -314,27 +331,36 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
         int s0, g0, kh, b, k_begin;
         const int n_tiles = work(w, s0, g0, kh, b, k_begin);
-        // the Q^T K products of the tile before the last are done
-        mbar_wait(q_empty(qi & 1), ((qi >> 1) & 1) ^ 1);
-        mbar_expect_tx(q_full(qi & 1), L::Q_BYTES);
+        // Q into its buffer once the buffer is free: with two, the Q K^T
+        // products of the tile before the last are done; with one, the
+        // last tile's O store has read it
+        auto load_q = [&]() {
+          const int qb = qi % QBUF;
+          mbar_wait(q_empty(qb), ((qi / QBUF) & 1) ^ 1);
+          mbar_expect_tx(q_full(qb), L::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          tma_load_5d(sQ(qi & 1) + c * WBM * 128, &qmap, q_full(qi & 1),
-                      c * 64, g0, kh, s0, b);
+          for (int c = 0; c < NC; ++c)
+            tma_load_5d(sQ(qb) + c * WBM * 128, &qmap, q_full(qb), c * 64, g0,
+                        kh, s0, b);
+        };
+        // with one Q buffer the first K/V tiles go first
+        const int q_at = QBUF == 2 ? 0 : min(n_tiles, WST);
         for (int i = 0; i < n_tiles; ++i, ++it) {
+          if (i == q_at) load_q();
           const int s = it % WST;
           mbar_wait(empty(s), ((it / WST) & 1) ^ 1);
-          const int kt = k_begin + i * WBN;
+          const int kt = k_begin + i * BN;
           const uint32_t kd = sKV + s * 2 * L::KV_TILE, vd = kd + L::KV_TILE;
           mbar_expect_tx(full_k(s), L::KV_TILE);
 #pragma unroll
           for (int c = 0; c < NC; ++c)
-            tma_load_4d(kd + c * WBN * 128, &kmap, full_k(s), c * 64, kh, kt, b);
+            tma_load_4d(kd + c * BN * 128, &kmap, full_k(s), c * 64, kh, kt, b);
           mbar_expect_tx(full_v(s), L::KV_TILE);
 #pragma unroll
           for (int c = 0; c < NC; ++c)
-            tma_load_4d(vd + c * WBN * 128, &vmap, full_v(s), c * 64, kh, kt, b);
+            tma_load_4d(vd + c * BN * 128, &vmap, full_v(s), c * 64, kh, kt, b);
         }
+        if (q_at == n_tiles) load_q();
       }
     }
   } else {
@@ -342,9 +368,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int r0 = wg * 64 + warp * 16 + lane / 4;  // rows r0 and r0 + 8
     float m[2], l[2], corr[2];
-    float acc[HD / 2];
-    float sc[WBN / 2];          // scores, then P in f32, of one tile
-    uint32_t pa[WBN / 16][4];   // P in bf16: the A operand of PV
+    float acc[L::NACC][ACC_N / 2];  // O: element e of the m64nHD fragment
+    auto A = [&](int e) -> float& { return acc[e / (ACC_N / 2)][e % (ACC_N / 2)]; };
+    float sc[BN / 2];          // scores, then P in f32, of one tile
+    uint32_t pa[BN / 16][4];   // P in bf16: the A operand of PV
     int it = 0, qi = 0;
 
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
@@ -355,7 +382,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       m[0] = m[1] = NEG_INF;
       l[0] = l[1] = 0.f;
 #pragma unroll
-      for (int e = 0; e < HD / 2; ++e) acc[e] = 0.f;
+      for (int e = 0; e < HD / 2; ++e) A(e) = 0.f;
+      const int qb = qi % QBUF;
 
       // S = Q K^T of key tile i into sc, issued (not waited for); Q and K
       // are both K-major (rows along hd); issued once K has landed
@@ -369,40 +397,45 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
         for (int j = 0; j < HD / 16; ++j) {
           const uint32_t box = j / 4, koff = (j % 4) * 32;  // 16 of hd: 32 B
           wgmma_ss<0>(
-              sc, desc_sw128(sQ(qi & 1) + box * WBM * 128 + wg * 64 * 128 + koff,
+              sc, desc_sw128(sQ(qb) + box * WBM * 128 + wg * 64 * 128 + koff,
                              0, 1024),
-              desc_sw128(kb + box * WBN * 128 + koff, 0, 1024), j > 0);
+              desc_sw128(kb + box * BN * 128 + koff, 0, 1024), j > 0);
         }
         wgmma_commit();
       };
       // O += P V of key tile i, issued once V has landed: V is N-major (a
-      // transposed B)
+      // transposed B); each half of O reads two 64-wide column boxes
       auto pv = [&](int i) {
         const int s = (it + i) % WST;
         mbar_wait(full_v(s), ((it + i) / WST) & 1);
         const uint32_t vb = sKV + s * 2 * L::KV_TILE + L::KV_TILE;
-        fence_regs(acc);
+#pragma unroll
+        for (int h = 0; h < L::NACC; ++h) fence_regs(acc[h]);
         fence_regs(pa);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < WBN / 16; ++kk)
-          wgmma_rs<1>(acc, pa[kk], desc_sw128(vb + kk * 16 * 128, WBN * 128, 1024),
-                      1);
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int h = 0; h < L::NACC; ++h)
+            wgmma_rs<1>(acc[h], pa[kk],
+                        desc_sw128(vb + h * (ACC_N / 64) * BN * 128 + kk * 16 * 128,
+                                   BN * 128, 1024),
+                        1);
         wgmma_commit();
       };
       // the masks and the online softmax of key tile i on sc, in log2
       // units: sc becomes P (f32), and m, l and corr are updated
       auto softmax = [&](int i) {
-        const int kt = k_begin + i * WBN;
-        const bool masked = kt + WBN > Tk ||
-                            (causal && kt + WBN - 1 > pos_lo) ||
+        const int kt = k_begin + i * BN;
+        const bool masked = kt + BN > Tk ||
+                            (causal && kt + BN - 1 > pos_lo) ||
                             (window && kt <= pos_hi - window);
         // on a tile without masks the scale is folded into the exponent's
         // FMA (it is positive, so the max commutes with it)
         float mx[2] = {-INFINITY, -INFINITY};
         const float sx = masked ? 1.f : scale_log2;
 #pragma unroll
-        for (int e = 0; e < WBN / 2; ++e) {
+        for (int e = 0; e < BN / 2; ++e) {
           if (masked) {
             float x = sc[e] * scale_log2;
             const int col = kt + (e / 4) * 8 + 2 * (lane % 4) + (e & 1);
@@ -425,7 +458,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
           m[h] = m_new;
         }
 #pragma unroll
-        for (int e = 0; e < WBN / 2; ++e) {
+        for (int e = 0; e < BN / 2; ++e) {
           const float p = exp2f(fmaf(sc[e], sx, -m[(e >> 1) & 1]));
           sc[e] = p;
           sum[(e >> 1) & 1] += p;
@@ -441,7 +474,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       // exactly the A fragment of that k-step
       auto pack = [&]() {
 #pragma unroll
-        for (int kk = 0; kk < WBN / 16; ++kk) {
+        for (int kk = 0; kk < BN / 16; ++kk) {
           pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
           pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
           pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -454,21 +487,22 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       // work. (Issuing Q K^T of tile i + 1 before the softmax of tile i,
       // FlashAttention-3's overlap within a warpgroup, makes ptxas
       // serialize every wgmma (its C7514: the softmax reads scores while
-      // P V is in flight), and that measured slower on the H100.) Q is
-      // released once its last product is done.
-      mbar_wait(q_full(qi & 1), (qi >> 1) & 1);
+      // P V is in flight), and that measured slower on the H100.) With two
+      // Q buffers, Q is released once its last product is done.
+      mbar_wait(q_full(qb), (qi / QBUF) & 1);
       for (int i = 0; i < n_tiles; ++i) {
         qk(i);
         wgmma_wait<0>();
         fence_regs(sc);
-        if (i + 1 == n_tiles) mbar_arrive(q_empty(qi & 1));
+        if (QBUF == 2 && i + 1 == n_tiles) mbar_arrive(q_empty(qb));
         softmax(i);
 #pragma unroll
-        for (int e = 0; e < HD / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+        for (int e = 0; e < HD / 2; ++e) A(e) *= corr[(e >> 1) & 1];
         pack();
         pv(i);
         wgmma_wait<0>();
-        fence_regs(acc);
+#pragma unroll
+        for (int h = 0; h < L::NACC; ++h) fence_regs(acc[h]);
         mbar_arrive(empty((it + i) % WST));
       }
       it += n_tiles;
@@ -477,8 +511,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       // tile in shared memory (Q's swizzled layout), then one TMA store of
       // it, which skips rows past S and runs on while the next work tile
       // starts; the last store must have read the tile before it is
-      // written again
-      const uint32_t sO = base + L::O0 + wg * 64 * 128;
+      // written again. With one Q buffer, O goes through this warpgroup's
+      // rows of Q (its own products of them are done), and the buffer is
+      // released once the store has read it.
+      const uint32_t sO = (QBUF == 2 ? base + L::O0 : sQ(0)) + wg * 64 * 128;
       if (tid == 0) bulk_wait_read();
       warpgroup_sync(1 + wg);
 #pragma unroll
@@ -490,8 +526,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
           asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
                            sO + (n / 8) * WBM * 128 + r * 128 +
                            (((n % 8) ^ (r & 7)) << 4) + 4 * (lane % 4)),
-                       "r"(pack_bf16x2(acc[4 * n + 2 * h] * inv,
-                                       acc[4 * n + 2 * h + 1] * inv))
+                       "r"(pack_bf16x2(A(4 * n + 2 * h) * inv,
+                                       A(4 * n + 2 * h + 1) * inv))
                        : "memory");
       }
       fence_proxy_async();
@@ -504,6 +540,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
         for (int c = 0; c < NC; ++c)
           tma_store_5d(&omap, sO + c * WBM * 128, c * 64, gs, kh, ps, b);
         bulk_commit();
+        if (QBUF == 1) {
+          bulk_wait_read();
+          mbar_arrive(q_empty(0));
+        }
       }
     }
     if (tid == 0) bulk_wait_read();
@@ -545,7 +585,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const uint64_t kd[4] = {(uint64_t)HD, (uint64_t)K, (uint64_t)Tk, (uint64_t)B};
   const uint64_t ks[3] = {HD * e, (uint64_t)K * HD * e,
                           (uint64_t)Tk * K * HD * e};
-  const uint32_t kb[4] = {64, 1, WBN, 1};
+  const uint32_t kb[4] = {64, 1, FaLayout<HD>::BN, 1};
   // a consumer warpgroup's half of a work tile's rows
   const uint32_t ob[5] = {64, (uint32_t)(GP < 64 ? GP : 64), 1,
                           (uint32_t)(GP < 64 ? 64 / GP : 1), 1};
@@ -582,7 +622,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. hd must be 64 or 128. All tensors are
+// dtype: 0 = float32, 1 = bfloat16. hd must be 64, 128 or 256. All tensors are
 // contiguous and 16-byte aligned. Returns the cudaError_t of the launch
 // (0 = launched; cudaErrorInvalidValue also where cuTensorMapEncodeTiled
 // refuses a TMA tensor map).
@@ -597,8 +637,12 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     return launch_f32<128>(q, k, v, o, B, S, Tk, K, G, causal, window, scale, st);
   if (dtype == 1 && hd == 64)
     return launch_bf16<64>(q, k, v, o, B, S, Tk, K, G, causal, window, scale, st);
+  if (dtype == 0 && hd == 256)
+    return launch_f32<256>(q, k, v, o, B, S, Tk, K, G, causal, window, scale, st);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(q, k, v, o, B, S, Tk, K, G, causal, window, scale, st);
+  if (dtype == 1 && hd == 256)
+    return launch_bf16<256>(q, k, v, o, B, S, Tk, K, G, causal, window, scale, st);
   return cudaErrorInvalidValue;
 }
 

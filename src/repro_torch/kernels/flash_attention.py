@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 launches = 0  # kernel launches since the last reset (plain runs excluded)
 

@@ -1,4 +1,4 @@
-"""GQA attention: full-sequence (direct or KV-chunked) and one-token decode.
+"""GQA attention: full-sequence (direct or KV-chunked), cross, and decode.
 
 PyTorch counterparts of the JAX package's ``models/attention.py``. With
 ``use_kernels`` the attention core goes to the CUDA kernels of
@@ -144,6 +144,34 @@ def self_attention(cfg, p, x, positions, *, causal=True, window=0,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(cfg, p, x, enc_k, enc_v):
+    """Decoder cross-attention against precomputed encoder K/V. The
+    reference computes it with ``_direct_attention``, outside any Pallas
+    kernel, so the port's is plain PyTorch too.
+
+    x: (B, S, d); enc_k/enc_v: (B, T_enc, K, hd) -> (B, S, d)."""
+    a = dims_of(cfg)
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, a.num_kv_heads, a.q_groups, a.head_dim)
+    o = _direct_attention(q, enc_k, enc_v, 0.0).to(x.dtype)
+    return o.reshape(B, S, a.num_heads * a.head_dim) @ p["wo"]
+
+
+def encode_kv(cfg, p, enc_out):
+    """Cross-attention K/V of the encoder output: (B, T_enc, K, hd) each."""
+    a = dims_of(cfg)
+    B, T, _ = enc_out.shape
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, T, a.num_kv_heads, a.head_dim),
+            v.reshape(B, T, a.num_kv_heads, a.head_dim))
 
 
 # ------------------------------------------------------------------ decode

@@ -24,13 +24,13 @@ def dense_param(gen, shape, dtype, in_axis: int = 0):
     std = 1.0 / np.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def embed_param(gen, shape, dtype):
     t = torch.randn(shape, dtype=torch.float32, device=gen.device,
                     generator=gen)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)   # in place: one f32 copy at a time
 
 
 # ---------------------------------------------------------------- norms

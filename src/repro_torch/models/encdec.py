@@ -1,0 +1,187 @@
+"""Whisper-style encoder-decoder transformer.
+
+PyTorch counterpart of the JAX package's ``models/encdec.py``. The
+mel-spectrogram + conv frontend is a stub: ``frame_embeds`` (B,
+encoder_seq, d_model) arrive precomputed. Params are a dict: ``embed``
+(V, d), the learned position tables ``pos_dec`` and ``pos_enc``,
+``encoder`` and ``decoder`` (one dict per layer, as ``lm``'s ``layers``),
+``ln_enc`` and ``ln_dec``. The logits come from the tied ``embed``, in
+f32.
+
+With ``use_kernels`` the encoder's non-causal self-attention and the
+decoder's causal one go through the flash kernel, and decode's
+self-attention through the decode kernel; cross-attention is plain
+PyTorch, as the reference's is (``attention.cross_attention``). The cache
+keeps the reference's layout: ``{"self": {"k", "v"}, "cross": (k, v)}``,
+each tensor stacked over the decoder layers (L, B, T, K, hd); decode
+writes the self-attention ring in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, common, ffn as ffn_mod, lm
+from repro_torch.models.blocks import CallOpts, _kv_into_ring
+
+
+def _init_layer(gen, cfg, cross: bool):
+    d = cfg.d_model
+    p = {
+        "ln1": common.init_norm(cfg, d, gen.device),
+        "attn": attention.init_attention(gen, cfg),
+        "ln_ffn": common.init_norm(cfg, d, gen.device),
+        "ffn": ffn_mod.init_dense_ffn(gen, cfg),
+    }
+    if cross:
+        p["ln_x"] = common.init_norm(cfg, d, gen.device)
+        p["xattn"] = attention.init_attention(gen, cfg)
+    return p
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda"):
+    """Random weights from ``seed``, in the reference's distributions,
+    made on ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = common.dtype_of(cfg)
+    d = cfg.d_model
+    return {
+        "embed": common.embed_param(gen, (cfg.vocab_size, d), dt),
+        "pos_dec": common.embed_param(gen, (cfg.max_learned_pos, d), dt),
+        "pos_enc": common.embed_param(gen, (cfg.encoder_seq, d), dt),
+        "encoder": [_init_layer(gen, cfg, False)
+                    for _ in range(cfg.encoder_layers)],
+        "decoder": [_init_layer(gen, cfg, True) for _ in range(cfg.num_layers)],
+        "ln_enc": common.init_norm(cfg, d, dev),
+        "ln_dec": common.init_norm(cfg, d, dev),
+    }
+
+
+def _rows(table, positions):
+    """Rows of a learned position table; positions past its end reuse its
+    last row (XLA clamps the reference's gather)."""
+    return table[positions.long().clamp(max=table.shape[0] - 1)]
+
+
+def encode(params, cfg, frame_embeds, opts: CallOpts = CallOpts()):
+    """frame_embeds: (B, T_enc, d) stubbed conv features -> (B, T_enc, d)."""
+    T = frame_embeds.shape[1]
+    pos = torch.arange(T, dtype=torch.int32, device=frame_embeds.device)
+    dt = common.dtype_of(cfg)
+    h = frame_embeds.to(dt) + _rows(params["pos_enc"], pos).to(dt)
+    for lp in params["encoder"]:
+        hn = common.apply_norm(cfg, lp["ln1"], h)
+        h = h + attention.self_attention(cfg, lp["attn"], hn, pos,
+                                         causal=False,
+                                         attn_chunk=opts.attn_chunk,
+                                         use_kernels=opts.use_kernels)
+        hn = common.apply_norm(cfg, lp["ln_ffn"], h)
+        h = h + ffn_mod.dense_ffn(cfg, lp["ffn"], hn)
+    return common.apply_norm(cfg, params["ln_enc"], h)
+
+
+def _stacked_kv(cfg, batch, T, dtype, device):
+    """Zero K and V, each (L, batch, T, K, hd): one slab a decoder layer."""
+    a = attention.dims_of(cfg)
+    shape = (cfg.num_layers, batch, T, a.num_kv_heads, a.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def encode_cross_kv(params, cfg, enc_out):
+    """Each decoder layer's cross K/V: (k, v), each (L, B, T_enc, K, hd)."""
+    B, T, _ = enc_out.shape
+    ck, cv = _stacked_kv(cfg, B, T, enc_out.dtype, enc_out.device)
+    for i, lp in enumerate(params["decoder"]):
+        ck[i], cv[i] = attention.encode_kv(cfg, lp["xattn"], enc_out)
+    return ck, cv
+
+
+def _decoder_layer_full(cfg, lp, h, pos, cross_kv, opts, kv_len):
+    """One decoder layer over the whole sequence. Returns (h, (k, v)) of
+    its self-attention, in a ring of ``kv_len`` slots, or (h, None)."""
+    hn = common.apply_norm(cfg, lp["ln1"], h)
+    o = attention.self_attention(cfg, lp["attn"], hn, pos,
+                                 attn_chunk=opts.attn_chunk,
+                                 use_kernels=opts.use_kernels,
+                                 return_kv=kv_len is not None)
+    ce = None
+    if kv_len is not None:
+        o, (k, v) = o
+        ce = (_kv_into_ring(k, kv_len), _kv_into_ring(v, kv_len))
+    h = h + o
+    hn = common.apply_norm(cfg, lp["ln_x"], h)
+    h = h + attention.cross_attention(cfg, lp["xattn"], hn, *cross_kv)
+    hn = common.apply_norm(cfg, lp["ln_ffn"], h)
+    return h + ffn_mod.dense_ffn(cfg, lp["ffn"], hn), ce
+
+
+def _decoder_input(params, cfg, tokens):
+    S = tokens.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    h = (params["embed"][tokens.long()]
+         + _rows(params["pos_dec"], pos).to(common.dtype_of(cfg)))
+    return h, pos
+
+
+def _logits(params, h):
+    return lm.logits_of(h, params["embed"].t())
+
+
+def forward(params, cfg, tokens, frame_embeds, opts: CallOpts = CallOpts()):
+    """Teacher-forced full-sequence decoder logits: (logits, aux = 0)."""
+    ck, cv = encode_cross_kv(params, cfg, encode(params, cfg, frame_embeds,
+                                                 opts))
+    h, pos = _decoder_input(params, cfg, tokens)
+    for i, lp in enumerate(params["decoder"]):
+        h, _ = _decoder_layer_full(cfg, lp, h, pos, (ck[i], cv[i]), opts, None)
+    h = common.apply_norm(cfg, params["ln_dec"], h)
+    return _logits(params, h), torch.zeros((), dtype=torch.float32,
+                                           device=h.device)
+
+
+def prefill(params, cfg, tokens, frame_embeds, kv_len: int,
+            opts: CallOpts = CallOpts()):
+    """Encode the audio and prefill the decoder: (last logits, cache)."""
+    ck, cv = encode_cross_kv(params, cfg, encode(params, cfg, frame_embeds,
+                                                 opts))
+    h, pos = _decoder_input(params, cfg, tokens)
+    sk, sv = _stacked_kv(cfg, tokens.shape[0], kv_len, h.dtype, h.device)
+    for i, lp in enumerate(params["decoder"]):
+        h, (sk[i], sv[i]) = _decoder_layer_full(cfg, lp, h, pos,
+                                                (ck[i], cv[i]), opts, kv_len)
+    h = common.apply_norm(cfg, params["ln_dec"], h[:, -1:])
+    return _logits(params, h), {"self": {"k": sk, "v": sv}, "cross": (ck, cv)}
+
+
+def decode_step(params, cfg, tokens, pos: int, cache,
+                opts: CallOpts = CallOpts()):
+    """One decoder token. tokens: (B, 1); pos: absolute position (int),
+    clamped to the learned table for the position row. Returns (logits
+    (B,1,V), cache); the self-attention ring is updated in place."""
+    row = params["pos_dec"][min(int(pos), cfg.max_learned_pos - 1)]
+    h = params["embed"][tokens.long()] + row.to(common.dtype_of(cfg))
+    sk, sv = cache["self"]["k"], cache["self"]["v"]
+    ck, cv = cache["cross"]
+    for i, lp in enumerate(params["decoder"]):
+        hn = common.apply_norm(cfg, lp["ln1"], h)
+        o, _, _ = attention.decode_self_attention(
+            cfg, lp["attn"], hn, sk[i], sv[i], pos,
+            use_kernels=opts.use_kernels)
+        h = h + o
+        hn = common.apply_norm(cfg, lp["ln_x"], h)
+        h = h + attention.cross_attention(cfg, lp["xattn"], hn, ck[i], cv[i])
+        hn = common.apply_norm(cfg, lp["ln_ffn"], h)
+        h = h + ffn_mod.dense_ffn(cfg, lp["ffn"], hn)
+    h = common.apply_norm(cfg, params["ln_dec"], h)
+    return _logits(params, h), cache
+
+
+def init_cache(cfg, batch, kv_len, dtype=torch.bfloat16, device="cuda"):
+    """Zeros in the reference's layout."""
+    dev = resolve_device(device)
+    sk, sv = _stacked_kv(cfg, batch, kv_len, dtype, dev)
+    return {"self": {"k": sk, "v": sv},
+            "cross": _stacked_kv(cfg, batch, cfg.encoder_seq, dtype, dev)}

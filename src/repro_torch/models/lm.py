@@ -1,9 +1,12 @@
-"""Decoder-only LM (the dense, MoE, SSM and hybrid families).
+"""Decoder-only LM (the dense, MoE, SSM, hybrid and VLM families).
 
 PyTorch counterparts of the JAX package's ``models/lm.py``. Params are a
 dict: ``embed`` (V, d), ``layers`` (one dict per layer), ``ln_f`` and,
-where the config asks, ``unembed`` (d, V) and ``pos``. The VLM visual
-prefix is not ported yet (``models/api.py`` refuses VLM configs).
+where the config asks, ``unembed`` (d, V), ``pos`` and, for a VLM,
+``visual_scale`` (a 0-d f32 one, the stand-in of the projector that the
+stubbed vision tower would feed). A VLM's ``visual_embeds`` (B, V, d) are
+scaled in f32, cast to the model's dtype and put before the text, so its
+positions run over V + S_text; decode is the text LM's.
 
 The unembedding returns f32 logits, as the reference's bf16 x bf16 ->
 f32 einsum does. On the card it is one ``torch.mm(..., out_dtype=float32)``
@@ -37,13 +40,18 @@ def init_params(cfg, *, seed: int = 0, device="cuda"):
         p["unembed"] = common.dense_param(gen, (cfg.d_model, cfg.vocab_size), dt)
     if cfg.pos_emb == "learned":
         p["pos"] = common.embed_param(gen, (cfg.max_learned_pos, cfg.d_model), dt)
+    if cfg.num_visual_tokens:
+        p["visual_scale"] = torch.ones((), dtype=torch.float32, device=dev)
     return p
 
 
-def _embed(cfg, p, tokens, positions):
+def _embed(cfg, p, tokens, positions, visual_embeds=None):
     h = p["embed"][tokens.long()]
     if cfg.name.startswith("gemma"):
         h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)
+    if visual_embeds is not None:
+        ve = visual_embeds.float() * p["visual_scale"]
+        h = torch.cat([ve.to(h.dtype), h], dim=1)
     if cfg.pos_emb == "learned":
         # XLA clamps an out-of-range gather index, so the reference's
         # positions past the table reuse its last row; clamp to match
@@ -52,7 +60,11 @@ def _embed(cfg, p, tokens, positions):
 
 
 def _unembed(cfg, p, h):
-    w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]   # (d, V)
+    return logits_of(h, p["embed"].t() if cfg.tie_embeddings else p["unembed"])
+
+
+def logits_of(h, w):
+    """f32 logits (B, S, V) of h (B, S, d) against w (d, V)."""
     B, S, d = h.shape
     if h.device.type == "cuda" and h.dtype != torch.float32:
         out = torch.mm(h.reshape(B * S, d), w, out_dtype=torch.float32)
@@ -61,21 +73,28 @@ def _unembed(cfg, p, h):
     return out.reshape(B, S, -1)
 
 
-def forward(params, cfg, tokens, *, opts: CallOpts = CallOpts()):
-    """Full-sequence logits. tokens: (B, S)."""
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    h = _embed(cfg, params, tokens, positions)
+def _positions(tokens, visual_embeds):
+    """Positions 0 .. V + S_text - 1 of the visual prefix and the text."""
+    S = tokens.shape[1] + (0 if visual_embeds is None
+                           else visual_embeds.shape[1])
+    return torch.arange(S, dtype=torch.int32, device=tokens.device)
+
+
+def forward(params, cfg, tokens, *, visual_embeds=None,
+            opts: CallOpts = CallOpts()):
+    """Full-sequence logits. tokens: (B, S_text); visual_embeds: (B, V, d)."""
+    positions = _positions(tokens, visual_embeds)
+    h = _embed(cfg, params, tokens, positions, visual_embeds)
     h, aux, _ = blocks.apply_stack(cfg, params["layers"], h, positions, opts)
     h = common.apply_norm(cfg, params["ln_f"], h)
     return _unembed(cfg, params, h), aux
 
 
-def prefill(params, cfg, tokens, kv_len: int, *, opts: CallOpts = CallOpts()):
+def prefill(params, cfg, tokens, kv_len: int, *, visual_embeds=None,
+            opts: CallOpts = CallOpts()):
     """Prefill: returns (last-token logits (B,1,V), cache)."""
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    h = _embed(cfg, params, tokens, positions)
+    positions = _positions(tokens, visual_embeds)
+    h = _embed(cfg, params, tokens, positions, visual_embeds)
     h, _, cache = blocks.apply_stack(cfg, params["layers"], h, positions,
                                      opts, kv_len=kv_len)
     h = common.apply_norm(cfg, params["ln_f"], h[:, -1:])

@@ -67,6 +67,21 @@ class PodEngine:
                            gpu)
         return t_full * n_tokens_equiv / self.spec.seq
 
+    def _extra_inputs(self, B):
+        """The stubbed frontends' inputs, zeros in bf16 as in the
+        reference: an encoder-decoder's ``frame_embeds`` and a VLM's
+        ``visual_embeds``."""
+        extra = {}
+        if self.cfg.is_encoder_decoder:
+            extra["frame_embeds"] = torch.zeros(
+                (B, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        if self.cfg.num_visual_tokens:
+            extra["visual_embeds"] = torch.zeros(
+                (B, self.cfg.num_visual_tokens, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        return extra
+
     def submit(self, req: InferenceRequest) -> None:
         self.batcher.submit(req)
 
@@ -74,14 +89,18 @@ class PodEngine:
         """Serve one batch if ready. Returns completed requests.
 
         Prompts are left-padded and unmasked (the pad tokens are attended
-        to), exactly as in the reference engine; decoding is greedy."""
+        to), exactly as in the reference engine; decoding is greedy. A
+        VLM's text follows its visual prefix, so decode starts at position
+        V + L."""
         if not self.batcher.ready():
             return []
         reqs = self.batcher.next_batch()
         prompts = self.batcher.pad_prompts(reqs, pad_id=self.batcher.pad_id,
                                            pad_to=None)
         B, L = prompts.shape
-        batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        v = self.cfg.num_visual_tokens or 0
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device),
+                 **self._extra_inputs(B)}
         logits, cache = self.libhas.launch(
             self._prefill, self.params, batch, cost_s=self._cost(B * L))
         n_new = max(r.max_new_tokens for r in reqs)
@@ -90,7 +109,7 @@ class PodEngine:
         for i in range(n_new):
             toks.append(tok)
             logits, cache = self.libhas.launch(
-                self._decode, self.params, tok, L + i, cache,
+                self._decode, self.params, tok, v + L + i, cache,
                 cost_s=self._cost(B))
             tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
         outs = torch.cat(toks, dim=1).cpu().numpy().astype(np.int32)

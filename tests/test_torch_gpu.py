@@ -80,6 +80,44 @@ def test_flash_kernel_gqa_packing_on_card(cuda, B, S, T, K, G, hd, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,K,G", [
+    (8, 512, 512, 16, 1),       # gemma-7b serving
+    (2, 437, 437, 2, 2),        # ragged S, 2 query heads a KV head
+    (1, 300, 300, 1, 8),        # 8 heads packed a block
+    (1, 77, 333, 2, 8),         # S != T
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_kernel_head_dim_256_on_card(cuda, B, S, T, K, G, dtype, causal,
+                                           window):
+    """head_dim 256 (gemma-7b): the bf16 kernel's 64-key tiles and single
+    Q buffer, and the f32 kernel at 213,760 bytes of shared memory."""
+    gen = torch.Generator(device=cuda).manual_seed(S + T + G)
+    q = torch.randn((B, S, K, G, 256), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, T, K, 256), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, T, K, 256), generator=gen, device=cuda).to(dtype)
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.isfinite(out).all()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 96, 192, 512])
+def test_flash_kernel_refuses_other_head_dims(cuda, hd):
+    q = torch.zeros((1, 64, 1, 1, hd), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 64, 1, hd), device=cuda, dtype=torch.bfloat16)
+    before = tfa.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(q, kv, kv)
+    assert tfa.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,T,K,G,hd,pos", [(8, 1024, 2, 8, 128, 600),
                                             (8, 1024, 2, 8, 128, 5000),
                                             (3, 100, 1, 4, 64, 50),
@@ -203,6 +241,51 @@ def test_engine_on_card_goes_through_kernels(cuda, arch):
     got, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 64,
                             CallOpts(use_kernels=True))
     want, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 64, CallOpts())
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-medium"])
+def test_engine_on_card_serves_stub_frontends(cuda, arch):
+    """A reduced bf16 VLM and encoder-decoder served on the card: each
+    prefill launches flash once a layer (whisper: its encoder's layers
+    too), each decode step decode_attention once a decoder layer, and the
+    prefill logits agree with plain attention within 3e-2 on random
+    visual or frame embeddings."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.gpus import get_gpu_type
+    from repro_torch.core.scheduler import HASGPUScheduler
+    from repro_torch.core.vgpu import PodAlloc, VirtualGPU
+    from repro_torch.models import CallOpts
+    from repro_torch.serving import InferenceRequest, PodEngine
+
+    cfg = reduced(ARCHS[arch])
+    vgpu = VirtualGPU(f"GPU-card-{arch}", gpu_type=get_gpu_type("h100"))
+    pod = PodAlloc(fn_id="f", sm=8, quota=1.0, batch=3)
+    vgpu.place(pod)
+    eng = PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=64, seed=2)
+    rng = np.random.default_rng(2)
+    for n in (5, 17, 30):
+        eng.submit(InferenceRequest(
+            prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=4))
+    fa0, da0 = tfa.launches, tda.launches
+    done = eng.step()
+    assert [len(r.output) for r in done] == [4, 4, 4]
+    n_flash = cfg.num_layers + (cfg.encoder_layers
+                                if cfg.is_encoder_decoder else 0)
+    assert tfa.launches - fa0 == n_flash
+    assert tda.launches - da0 == cfg.num_layers * 4
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, size=(3, 30)), device=cuda)}
+    for key, x in eng._extra_inputs(3).items():
+        batch[key] = torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype)
+    got, _ = models.prefill(eng.params, cfg, batch, 64,
+                            CallOpts(use_kernels=True))
+    want, _ = models.prefill(eng.params, cfg, batch, 64, CallOpts())
     assert torch.isfinite(got).all()
     assert rel_err(got, want) <= 3e-2
 

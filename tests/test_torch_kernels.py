@@ -46,6 +46,8 @@ def rel_err(got, want):
     (1, 128, 128, 1, 1, 64),
     (2, 256, 256, 2, 2, 64),
     (1, 128, 128, 2, 4, 128),
+    (1, 128, 128, 2, 1, 256),    # gemma-7b's head_dim
+    (1, 128, 128, 1, 2, 256),
 ])
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])

@@ -366,6 +366,136 @@ def test_ssm_logits_match_jax(n_groups, dtype, use_kernels):
     assert tc[0]["state"].dtype == torch.float32
 
 
+def _decode_both(jp, jcfg, tp, tcfg, jc, tc, toks, start, stop, offset, dtype,
+                 jo, to):
+    """Decode tokens [start, stop) on both sides from their caches, at
+    positions ``offset + i``; each step's logits held. Returns the caches."""
+    tt = torch.from_numpy(toks)
+    for i in range(start, stop):
+        jl, jc = jmodels.decode_step(jp, jcfg, jnp.asarray(toks[:, i:i + 1]),
+                                     jnp.asarray(offset + i, jnp.int32), jc, jo)
+        tl, tc = tmodels.decode_step(tp, tcfg, tt[:, i:i + 1], offset + i, tc,
+                                     to)
+        assert rel_err(tl, jl) < TOL[dtype], f"decode at pos {offset + i}"
+    return jc, tc
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("gemma-7b", (("head_dim", 256),)),     # reduced() sets 64
+    ("command-r-35b", ()),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_dense_family_logits_match_jax(arch, changes, dtype, use_kernels):
+    """gemma-7b (GeGLU, embedding scale, head_dim 256, one query head a KV
+    head) and command-r-35b (layernorm, 4 query heads a KV head): forward,
+    prefill, decode and the cache, both attention paths."""
+    jcfg, jp, tcfg, tp = bridged(arch, dtype, changes=changes)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 19)).astype(np.int32)
+    jo, to = JCallOpts(use_kernels=use_kernels), CallOpts(use_kernels=use_kernels)
+    tt = torch.from_numpy(toks)
+    want, _ = jmodels.forward(jp, jcfg, {"tokens": jnp.asarray(toks)}, jo)
+    got, _ = tmodels.forward(tp, tcfg, {"tokens": tt}, to)
+    assert rel_err(got, want) < TOL[dtype]
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :16])},
+                             32, jo)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": tt[:, :16]}, 32, to)
+    assert rel_err(tl, jl) < TOL[dtype]
+    jc, tc = _decode_both(jp, jcfg, tp, tcfg, jc, tc, toks, 16, 19, 0, dtype,
+                          jo, to)
+    jk = np.asarray(jc["periods"][0]["k"], np.float32)
+    assert tc[0]["k"].shape[-1] == tcfg.head_dim
+    for layer in range(tcfg.num_layers):
+        assert rel_err(tc[layer]["k"], jk[layer]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_vlm_logits_match_jax(dtype, use_kernels):
+    """Reduced llava-next-34b with random (not zero) visual embeddings and
+    a visual_scale that is not 1: forward over V + S_text positions,
+    prefill, and decode from position V + S_text."""
+    jcfg, jp, tcfg, tp = bridged("llava-next-34b", dtype)
+    jp = dict(jp, visual_scale=jnp.asarray(1.75, jnp.float32))
+    tp = dict(tp, visual_scale=torch.tensor(1.75))
+    V = jcfg.num_visual_tokens
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 19)).astype(np.int32)
+    (jv, tv) = both(rng.standard_normal((2, V, jcfg.d_model)) * 0.05, "bfloat16")
+    jo, to = JCallOpts(use_kernels=use_kernels), CallOpts(use_kernels=use_kernels)
+    tt = torch.from_numpy(toks)
+    want, _ = jmodels.forward(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                         "visual_embeds": jv}, jo)
+    got, _ = tmodels.forward(tp, tcfg, {"tokens": tt, "visual_embeds": tv}, to)
+    assert got.shape == (2, V + 19, jcfg.vocab_size)
+    assert rel_err(got, want) < TOL[dtype]
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :16]),
+                                        "visual_embeds": jv}, 64, jo)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": tt[:, :16],
+                                        "visual_embeds": tv}, 64, to)
+    assert rel_err(tl, jl) < TOL[dtype]
+    jc, tc = _decode_both(jp, jcfg, tp, tcfg, jc, tc, toks, 16, 19, V, dtype,
+                          jo, to)
+    jv_cache = np.asarray(jc["periods"][0]["v"], np.float32)
+    for layer in range(tcfg.num_layers):
+        assert rel_err(tc[layer]["v"], jv_cache[layer]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_encdec_logits_match_jax(dtype, use_kernels):
+    """Reduced whisper-medium: the encoder (non-causal), cross K/V, the
+    decoder's forward and prefill logits, three decode steps, and the
+    {self, cross} cache they leave, layer by layer."""
+    jcfg, jp, tcfg, tp = bridged("whisper-medium", dtype)
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 19)).astype(np.int32)
+    jf, tf = both(rng.standard_normal((2, jcfg.encoder_seq, jcfg.d_model)),
+                  "bfloat16")
+    jo, to = JCallOpts(use_kernels=use_kernels), CallOpts(use_kernels=use_kernels)
+    tt = torch.from_numpy(toks)
+    want, jaux = jmodels.forward(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                            "frame_embeds": jf}, jo)
+    got, taux = tmodels.forward(tp, tcfg, {"tokens": tt, "frame_embeds": tf},
+                                to)
+    assert got.dtype == torch.float32 and float(taux) == float(jaux) == 0.0
+    assert rel_err(got, want) < TOL[dtype]
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :16]),
+                                        "frame_embeds": jf}, 32, jo)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": tt[:, :16],
+                                        "frame_embeds": tf}, 32, to)
+    assert rel_err(tl, jl) < TOL[dtype]
+    jc, tc = _decode_both(jp, jcfg, tp, tcfg, jc, tc, toks, 16, 19, 0, dtype,
+                          jo, to)
+    assert set(tc) == {"self", "cross"} and len(tc["cross"]) == 2
+    for key in ("k", "v"):
+        want = np.asarray(jc["self"][key], np.float32)
+        assert tuple(tc["self"][key].shape) == want.shape
+        assert rel_err(tc["self"][key], want) < TOL[dtype], key
+    for got, want in zip(tc["cross"], jc["cross"]):
+        assert tuple(got.shape) == want.shape
+        assert rel_err(got, np.asarray(want, np.float32)) < TOL[dtype]
+
+
+def test_encdec_decode_clamps_learned_positions():
+    """Decode past the decoder's learned position table reuses its last
+    row, as the reference's ``jnp.minimum`` does."""
+    jcfg, jp, tcfg, tp = bridged("whisper-medium", "float32",
+                                 changes=(("max_learned_pos", 18),))
+    rng = np.random.default_rng(14)
+    toks = rng.integers(0, jcfg.vocab_size, size=(1, 21)).astype(np.int32)
+    jf, tf = both(rng.standard_normal((1, jcfg.encoder_seq, jcfg.d_model)),
+                  "float32")
+    jl, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :16]),
+                                        "frame_embeds": jf}, 32)
+    tl, tc = tmodels.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks[:, :16]),
+                                        "frame_embeds": tf}, 32)
+    assert rel_err(tl, jl) < TOL["float32"]
+    _decode_both(jp, jcfg, tp, tcfg, jc, tc, toks, 16, 21, 0, "float32",
+                 JCallOpts(), CallOpts())
+
+
 def test_gemma_scale_and_learned_positions_match_jax():
     """The embedding scale keyed on a gemma name and a learned position
     table, with positions past its end (row 17 of 18 is reused: XLA
@@ -413,7 +543,8 @@ def test_prefill_ring_roll_matches_jax():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b", "mamba2-2.7b",
-                                  "deepseek-moe-16b", "jamba-v0.1-52b"])
+                                  "deepseek-moe-16b", "jamba-v0.1-52b",
+                                  "gemma-7b", "command-r-35b"])
 def test_prefill_decode_consistency(arch):
     cfg = treduced(TARCHS[arch])
     params = tmodels.init_params(cfg, seed=2, device="cpu")
@@ -521,14 +652,60 @@ def test_init_ssm_distributions():
         assert abs(t.std() - j.std()) < 0.1 * j.std(), key
 
 
-def test_unported_kinds_raise():
-    cfg = treduced(TARCHS["qwen2.5-3b"])
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tmodels.init_params(dataclasses.replace(cfg, is_encoder_decoder=True),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="VLM"):
-        tmodels.init_params(dataclasses.replace(cfg, num_visual_tokens=4),
-                            device="cpu")
+def test_params_from_jax_carries_visual_scale_and_encdec_stacks():
+    """A VLM's 0-d f32 ``visual_scale`` is carried as it is; whisper's
+    vmap-stacked encoder and decoder are unstacked into per-layer lists."""
+    _, jp, tcfg, tp = bridged("llava-next-34b", "bfloat16")
+    assert tp["visual_scale"].shape == () and tp["visual_scale"].dtype == torch.float32
+    assert float(tp["visual_scale"]) == float(jp["visual_scale"]) == 1.0
+    jcfg, jp, tcfg, tp = bridged("whisper-medium", "bfloat16")
+    for part, depth in (("encoder", jcfg.encoder_layers),
+                        ("decoder", jcfg.num_layers)):
+        assert isinstance(tp[part], list) and len(tp[part]) == depth
+        for i, layer in enumerate(tp[part]):
+            for path, leaf in jax.tree_util.tree_leaves_with_path(jp[part]):
+                got = functools.reduce(lambda t, k: t[k.key], path, layer)
+                want = np.asarray(leaf[i], np.float32)
+                assert got.dtype == (torch.bfloat16 if leaf.dtype == jnp.bfloat16
+                                     else torch.float32)
+                np.testing.assert_array_equal(got.float().numpy(), want)
+    assert set(tp["decoder"][0]) == {"ln1", "attn", "ln_x", "xattn", "ln_ffn",
+                                     "ffn"}
+    assert tp["ln_enc"]["scale"].dtype == torch.float32
+    assert tuple(tp["pos_enc"].shape) == (jcfg.encoder_seq, jcfg.d_model)
+
+
+@pytest.mark.parametrize("arch", sorted(JARCHS))
+def test_every_family_of_the_reference_is_served(arch):
+    """``models/api.py`` refuses no family of the JAX package: the port's
+    own init of each reduced config has the reference's parameter tree
+    (names, shapes, dtypes), and a prefill and a decode step run on it."""
+    jcfg, tcfg = cfgs(arch, "bfloat16")
+    shapes = jax.eval_shape(lambda: jmodels.init_params(
+        jax.random.PRNGKey(0), jcfg))
+    want = params_from_jax(jax.tree.map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes), tcfg, device="cpu")
+    got = tmodels.init_params(tcfg, seed=1, device="cpu")
+
+    def spec(tree):
+        return jax.tree.map(lambda t: (tuple(t.shape), t.dtype), tree)
+
+    assert spec(got) == spec(want)
+    B, L = 2, 8
+    batch = {"tokens": torch.ones((B, L), dtype=torch.int32)}
+    if tcfg.num_visual_tokens:
+        batch["visual_embeds"] = torch.zeros(
+            (B, tcfg.num_visual_tokens, tcfg.d_model), dtype=torch.bfloat16)
+    if tcfg.is_encoder_decoder:
+        batch["frame_embeds"] = torch.zeros(
+            (B, tcfg.encoder_seq, tcfg.d_model), dtype=torch.bfloat16)
+    logits, cache = tmodels.prefill(got, tcfg, batch, 32,
+                                    CallOpts(capacity_factor=100.0))
+    pos = (tcfg.num_visual_tokens or 0) + L
+    logits, _ = tmodels.decode_step(got, tcfg, batch["tokens"][:, :1], pos,
+                                    cache)
+    assert logits.shape == (B, 1, tcfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_missing_card_raises(monkeypatch):

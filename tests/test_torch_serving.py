@@ -514,3 +514,75 @@ def test_moe_engine_greedy_tokens_match_jax_engine(use_kernels):
     assert eng.libhas.launches == jeng.libhas.launches == 2 * (1 + 6)
     assert eng.libhas.tokens_acquired_s == pytest.approx(
         jeng.libhas.tokens_acquired_s)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-medium"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_stub_frontend_engine_greedy_tokens_match_jax_engine(arch, use_kernels):
+    """Reduced llava-next-34b and whisper-medium, f32, bridged weights: the
+    port's CPU engine feeds the stubbed frontends the reference's zeros
+    (``_extra_inputs``) and decodes a VLM from position V + L + i, so it
+    emits the JAX engine's greedy tokens for two batches, with attention
+    kernels on both sides (the JAX engine's Pallas kernels in interpret
+    mode) or on neither, and charges the same token costs."""
+    import dataclasses
+    import jax
+    import torch
+    from repro import models as jmodels
+    from repro.configs import ARCHS as JARCHS, reduced as jreduced
+    from repro.core.scheduler import HASGPUScheduler as JScheduler
+    from repro.core.vgpu import PodAlloc as JPod, VirtualGPU as JVGPU
+    from repro.models import CallOpts as JCallOpts
+    from repro.serving import InferenceRequest as JRequest, PodEngine as JEngine
+    from repro_torch.models import CallOpts
+    from repro_torch.weights import params_from_jax
+
+    jcfg = dataclasses.replace(jreduced(JARCHS[arch]), dtype="float32")
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    jparams = jmodels.init_params(jax.random.PRNGKey(8), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    rng = np.random.default_rng(8)
+
+    uid = f"{arch}-{int(use_kernels)}"
+    jg = JVGPU(f"GPU-jax-{uid}")
+    jpod = JPod(fn_id="f", sm=8, quota=1.0, batch=3)
+    jg.place(jpod)
+    jeng = JEngine(jcfg, jpod, jg, JScheduler(), max_seq=64, params=jparams,
+                   opts=JCallOpts(use_kernels=use_kernels), pad_id=2)
+    g = VirtualGPU(f"GPU-torch-{uid}")
+    pod = PodAlloc(fn_id="f", sm=8, quota=1.0, batch=3)
+    g.place(pod)
+    eng = PodEngine(cfg, pod, g, HASGPUScheduler(), max_seq=64,
+                    params=params, opts=CallOpts(use_kernels=use_kernels),
+                    pad_id=2, device="cpu")
+    extra = eng._extra_inputs(3)
+    want_keys = {"visual_embeds"} if cfg.num_visual_tokens else {"frame_embeds"}
+    assert set(extra) == want_keys
+    for key, x in extra.items():
+        assert x.dtype == torch.bfloat16 and not x.any()
+        assert tuple(x.shape) == tuple(jeng._extra_inputs(3)[key].shape)
+    seen = []
+    decode = eng._decode
+
+    def spy(params_, tok, pos, cache):
+        seen.append(pos)
+        return decode(params_, tok, pos, cache)
+
+    eng._decode = spy
+    for lengths in ((7, 12, 3), (20, 5, 9)):
+        for n in lengths:
+            p = rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
+            jeng.submit(JRequest(prompt=p, max_new_tokens=5))
+            eng.submit(InferenceRequest(prompt=p, max_new_tokens=5))
+        want = [r.output for r in jeng.step()]
+        got = [r.output for r in eng.step()]
+        assert len(got) == len(want) == 3
+        for a, b in zip(got, want):
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+    v = cfg.num_visual_tokens
+    assert seen == [v + 12 + i for i in range(5)] + [v + 20 + i for i in range(5)]
+    assert eng.libhas.launches == jeng.libhas.launches == 2 * (1 + 5)
+    assert eng.libhas.tokens_acquired_s == pytest.approx(
+        jeng.libhas.tokens_acquired_s)
