@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Nine phases; any failure raises and the exit code is non-zero.
+Ten phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -110,13 +110,37 @@ reference's one-hot dispatch promotes a bf16 model's tokens to f32; x
 and w f32, an f32 model), and both attention kernels at
 deepseek's 16 heads of 128 with one query head a KV head.
 
+10. Calibrate: the profiling harness (``repro_torch.profiling``) over
+   ``H100_GRID`` (olmo-1b and mamba2-2.7b at full width with random
+   weights, on an h100 vGPU: batches 1 and 8, sm 2, 4 and 8, quotas 0.5
+   and 1.0, prefill of 512 tokens and one decode step: 48 points), here
+   with one warmup and the min of 2 (the committed reference took 2 and
+   5), each dispatch through ``PodEngine`` behind ``LibHas`` with the
+   kernels on. Checks that every step launched its kernels (the counts
+   reset just before and read just after), holds the report to
+   ``check_report`` against the committed
+   ``src/repro_torch/profiling/ref_profile_h100.json`` (factor 10), and
+   runs ``profile_kernels`` once, checking that each of its four cases
+   launched its kernel. Then, per arch, prints each point's measured and
+   analytic seconds beside the token cost ``PodEngine._cost`` charges
+   the dispatch over its quota (every prefill's wall is that pacing, not
+   the card's step) and twice ``slo_baseline`` (the simulator's SLO cap
+   of a batched prefill, anchored on the reference ``v5e`` device);
+   holds every kernel launch of one prefill and one decode step at each
+   of the grid's batches against its plain version on the same inputs
+   (flash and decode at olmo-1b's shapes, the SSD scan at mamba2's, B 1
+   and B 8, <= 3e-2); and holds olmo-1b's prefill logits (B 1 and 8,
+   L 512) through the kernels against plain attention (<= 3e-2).
+
 The line before the last is the kernels record as JSON (each kernel's
-launches summed over every served phase); the last line is
+launches summed over every served phase and the calibrate phase); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -1486,6 +1510,200 @@ def phase_serving_family(seed, arch, batch, max_seq, batches, check_rows):
     return launches
 
 
+@contextlib.contextmanager
+def holding(cases):
+    """Within the block, each ``(module, name, plain)`` of ``cases`` runs
+    its kernel and its plain version on the same inputs and returns the
+    plain result. Yields name -> [(shapes of the first two inputs, max
+    rel err over the outputs)], one entry a launch."""
+    seen = {name: [] for _, name, _ in cases}
+    kernels = [(mod, name, getattr(mod, name)) for mod, name, _ in cases]
+
+    def both(name, kernel, plain):
+        def run(*args, **kw):
+            want = plain(*args, **kw)
+            got = kernel(*args, **kw)
+            pairs = (zip(got, want) if isinstance(want, tuple)
+                     else [(got, want)])
+            seen[name].append((tuple(tuple(a.shape) for a in args[:2]),
+                               max(errors(g, w)[1] for g, w in pairs)))
+            return want
+        return run
+
+    for (mod, name, kernel), (_, _, plain) in zip(kernels, cases):
+        setattr(mod, name, both(name, kernel, plain))
+    try:
+        yield seen
+    finally:
+        for mod, name, kernel in kernels:
+            setattr(mod, name, kernel)
+
+
+def grid_engine(cfg, params, gpu, batch, sm, quota, seq, window_ms):
+    """A ``PodEngine`` built as the profiling harness builds one for a
+    grid point."""
+    from repro_torch.core.scheduler import HASGPUScheduler
+    from repro_torch.core.vgpu import PodAlloc, VirtualGPU
+    from repro_torch.serving import PodEngine
+    vgpu = VirtualGPU(f"GPU-calibrate-{cfg.name}", window_ms=window_ms,
+                      gpu_type=gpu)
+    pod = PodAlloc(fn_id=f"calibrate-{cfg.name}", sm=sm, quota=quota,
+                   batch=batch)
+    vgpu.place(pod)
+    return PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=seq,
+                     params=params)
+
+
+def phase_calibrate(seed):
+    """[calibrate]: the profiling harness over ``H100_GRID`` (see the
+    module docstring). Returns the grid's kernel launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.gpus import get_gpu_type
+    from repro_torch.core import perf_model
+    from repro_torch.core.perf_model import FnSpec
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.profiling import check_report, profile_kernels, run_profile
+    from repro_torch.profiling.__main__ import H100_GRID, REF_H100
+    from repro_torch.profiling.harness import prompt_len
+
+    # the committed reference took warmup 2 and the min of 5; check_report
+    # reads neither, and each dispatch is paced by its token cost, so one
+    # warmup and the min of 2 halve the phase
+    grid = dataclasses.replace(H100_GRID, warmup=1, iters=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.launches = da.launches = ss.launches = 0
+    t = time.perf_counter()
+    report = run_profile(grid)
+    took = time.perf_counter() - t
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches,
+                "ssd_chunk_scan": ss.launches}
+    # every pod runs warmup + iters timed prefills and one more before
+    # its decodes; olmo-1b launches flash and decode once a layer a step,
+    # mamba2-2.7b the SSD scan once a layer a prefill
+    n_pods = len(grid.batches) * len(grid.quotas) * sum(
+        sm <= get_gpu_type("h100").sm_total for sm in grid.sms)
+    prefills, decodes = grid.warmup + grid.iters + 1, grid.warmup + grid.iters
+    olmo, mamba = ARCHS["olmo-1b"], ARCHS["mamba2-2.7b"]
+    want = {"flash_attention": n_pods * prefills * olmo.num_layers,
+            "decode_attention": n_pods * decodes * olmo.num_layers,
+            "ssd_chunk_scan": n_pods * prefills * mamba.num_layers}
+    if launches != want:
+        raise AssertionError(f"[calibrate] kernel launches {launches}, want "
+                             f"{want}")
+    meta = report["meta"]
+    print(f"[calibrate] {len(report['points'])} points of H100_GRID (warmup "
+          f"{grid.warmup}, min of {grid.iters}) through PodEngine dispatches "
+          f"in {took:.1f} s on {meta['device_kind']} (power limit "
+          f"{meta['power_limit']}); launches {launches}")
+    for arch, e in sorted(report["error"]["per_arch"].items()):
+        print(f"[calibrate] {arch} rel err measured vs analytic: p50 "
+              f"{e['p50']:.4f}, p95 {e['p95']:.4f} ({e['n']} points)")
+    with open(REF_H100) as f:
+        failures = check_report(report, json.load(f))
+    if failures:
+        raise AssertionError("[calibrate] check_report against "
+                             f"{os.path.relpath(REF_H100, ROOT)}: "
+                             + "; ".join(failures))
+    print(f"[calibrate] check_report against "
+          f"{os.path.relpath(REF_H100, ROOT)} (factor 10): ok")
+
+    counters = {"flash_attention": lambda: fa.launches,
+                "decode_attention": lambda: da.launches,
+                "moe_gmm": lambda: mg.launches,
+                "ssd_scan": lambda: ss.launches}
+    for name, count in counters.items():
+        before = count()
+        rec, = profile_kernels(names=[name])
+        if count() <= before:
+            raise AssertionError(f"[calibrate] profile_kernels {name} did "
+                                 f"not launch its kernel")
+        print(f"[calibrate] profile_kernels {name}: kernel "
+              f"{rec['measured_s'] * 1e3:.4f} ms, plain "
+              f"{rec['ref_s'] * 1e3:.4f} ms (ratio {rec['ratio']:.4f}), "
+              f"{count() - before} launches")
+
+    # per arch, on random weights from ``seed``: each point's walls beside
+    # the token cost PodEngine._cost charges its dispatch; every kernel
+    # launch of one prefill and one decode step at each of the grid's
+    # batches held against its plain version; olmo-1b's prefill logits
+    # (16 KV heads of one query head each, head_dim 128, non-parametric
+    # LayerNorm) through the kernels against plain attention
+    cases = [(fa, "flash_attention", ref.flash_attention_ref),
+             (da, "decode_attention", ref.decode_attention_ref),
+             (ss, "ssd_chunk_scan", ref.ssd_chunk_scan_ref)]
+    held = {b: set() for b in grid.batches}
+    rng = np.random.default_rng(seed)
+    print("[calibrate] arch         batch sm quota phase    measured ms  "
+          "analytic ms  paced ms  2 x slo_baseline ms (paced: "
+          "PodEngine._cost of the dispatch over the quota; the cap is a "
+          "batched prefill's SLO)")
+    for arch in grid.archs:
+        cfg = ARCHS[arch]
+        L = prompt_len(cfg, grid.seq)
+        gpu = get_gpu_type(grid.gpu_types[0])
+        params = models.init_params(cfg, seed=seed, device="cuda")
+        for p in report["points"]:
+            if p["arch"] != arch:
+                continue
+            engine = grid_engine(cfg, params, gpu, p["batch"], p["sm"],
+                                 p["quota"], grid.seq, grid.window_ms)
+            n_tokens = p["batch"] * (L if p["phase"] == "prefill" else 1)
+            paced = engine._cost(n_tokens) / p["quota"]
+            cap = 2 * perf_model.slo_baseline(FnSpec(cfg, seq=L), p["batch"])
+            print(f"[calibrate] {arch:<12} {p['batch']:5d} {p['sm']:2d} "
+                  f"{p['quota']:5.2f} {p['phase']:<8} "
+                  f"{p['measured_s'] * 1e3:11.4f}  "
+                  f"{p['analytic_s'] * 1e3:11.4f}  {paced * 1e3:8.2f}  "
+                  f"{cap * 1e3:11.4f}")
+        for batch in grid.batches:
+            engine = grid_engine(cfg, params, gpu, batch, grid.sms[0],
+                                 grid.quotas[0], grid.seq, grid.window_ms)
+            toks = torch.as_tensor(
+                rng.integers(1, cfg.vocab_size, size=(batch, L)),
+                device="cuda")
+            with holding(cases) as seen:
+                logits, cache = engine._prefill(params, {"tokens": toks})
+                tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+                engine._decode(params, tok, L, cache)
+            torch.cuda.synchronize()
+            for name, runs in seen.items():
+                if not runs:
+                    continue
+                held[batch].add(name)
+                worst = max(e for _, e in runs)
+                shapes = sorted({s for s, _ in runs})
+                print(f"[calibrate] {arch} B={batch} L={L}: {name}, "
+                      f"{len(runs)} launches of a prefill and a decode step "
+                      f"at inputs {shapes}, kernel vs plain on the same "
+                      f"inputs, {cfg.dtype}: max rel err {worst:.3g} (tol "
+                      f"{SERVE_TOL})")
+                if len(runs) != cfg.num_layers or not worst <= SERVE_TOL:
+                    raise AssertionError(
+                        f"[calibrate] {arch} B={batch} {name}: {len(runs)} "
+                        f"launches, want {cfg.num_layers}; rel err {worst}")
+            if cfg is olmo:
+                check_prefill_logits(engine, cfg, served_batch(
+                    engine, cfg, rng, batch, L))
+            del logits, cache
+        del params, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if any(held[b] != set(launches) for b in grid.batches):
+        raise AssertionError(f"[calibrate] kernels held at each batch "
+                             f"{held}, want {sorted(launches)}")
+    return launches
+
+
 def device_busy_ms(fn, launches=1, attempts=3):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
@@ -1553,6 +1771,8 @@ def main(argv=None):
                                       batches, rows)
         for kernel, n in counts.items():
             launches[kernel] += n
+    for kernel, n in phase_calibrate(args.seed).items():
+        launches[kernel] += n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "graph_ms")

@@ -567,3 +567,33 @@ def test_engine_on_card_runs_gmm_kernel(cuda):
     want, _ = models.prefill(eng.params, cfg, {"tokens": toks}, 64, CallOpts())
     assert torch.isfinite(got).all()
     assert rel_err(got, want) <= 3e-2
+
+
+@pytest.mark.gpu
+def test_profiling_harness_on_card(cuda):
+    """One reduced olmo-1b point through the harness on the card: a
+    ``profile_stack/v1`` report of a prefill and a decode dispatch with
+    positive measured seconds, the card's name and power limit in
+    ``meta``; and each ``profile_kernels`` case launches its kernel."""
+    from repro_torch.profiling import (SCHEMA, GridSpec, profile_kernels,
+                                       run_profile)
+
+    grid = GridSpec(archs=("olmo-1b",), gpu_types=("h100",), batches=(1,),
+                    sms=(4,), quotas=(1.0,), seq=32, warmup=1, iters=1)
+    report = run_profile(grid)
+    assert report["schema"] == SCHEMA
+    assert [p["phase"] for p in report["points"]] == ["prefill", "decode"]
+    assert all(p["measured_s"] > 0 for p in report["points"])
+    meta = report["meta"]
+    assert meta["backend"] == "cuda"
+    assert meta["device_kind"] == torch.cuda.get_device_name()
+    assert meta["power_limit"].endswith("W")
+    counters = {"flash_attention": lambda: tfa.launches,
+                "decode_attention": lambda: tda.launches,
+                "moe_gmm": lambda: tmg.launches,
+                "ssd_scan": lambda: tss.launches}
+    for name, count in counters.items():
+        before = count()
+        rec, = profile_kernels(warmup=1, iters=2, names=[name])
+        assert count() == before + 3, name
+        assert rec["measured_s"] > 0 and rec["ref_s"] > 0
