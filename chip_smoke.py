@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Ten phases; any failure raises and the exit code is non-zero.
+Eleven phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -132,9 +132,29 @@ deepseek's 16 heads of 128 with one query head a KV head.
    and B 8, <= 3e-2); and holds olmo-1b's prefill logits (B 1 and 8,
    L 512) through the kernels against plain attention (<= 3e-2).
 
+11. Autoscale: the control plane in the port. (a) On the host, every
+   golden case (each scenario of ``repro_torch.workloads.scenarios`` under
+   ``has``, ``steady_poisson`` also under ``kserve`` and ``fast``; seed
+   42, 45 s) run by the port and held to ``tests/goldens/`` by the port's
+   ``RunMetrics.load``/``diff`` (rel 1e-6, abs 1e-9). (b) The
+   ``serve_autoscale`` twin's part 2: HAS-GPU, KServe-like and
+   FaST-GShare-like over ``standard_workload(120 s, 25 rps, seed 11)``.
+   (c) Its part 1 on the card: full-width qwen2.5-3b (random bf16 weights
+   from ``--seed``) on one h100 vGPU pod (sm 4, batch 4, ``max_seq`` 64),
+   8 requests of 8 tokens (4 new each) at quota 0.3, ``set_quota`` to
+   0.9 on the same engine, 8 more. Checks that all 16 complete with 4
+   tokens, that the gateway holds the same engine before and after and
+   the ledger's quota is 0.9, and that flash and decode launched once a
+   layer a prefill and a decode step (counts reset just before, read
+   just after); prints the two walls, not held. (d) Every flash launch of
+   one 8-token prefill (q (4, 8, 2, 8, 128): below the kernel's 64-key and
+   128-row tiles) and every decode launch of one step over the 64-slot
+   ring (one tile, a split of 1) against the plain versions on the same
+   inputs (bf16, <= 3e-2).
+
 The line before the last is the kernels record as JSON (each kernel's
-launches summed over every served phase and the calibrate phase); the
-last line is
+launches summed over every served phase, the calibrate phase and part 1
+of the autoscale phase); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1704,6 +1724,145 @@ def phase_calibrate(seed):
     return launches
 
 
+GOLDEN_SEED, GOLDEN_DURATION_S = 42, 45.0   # the golden corpus's run
+GOLDEN_REL, GOLDEN_ABS = 1e-6, 1e-9         # and its tolerances
+
+
+def check_goldens():
+    """Every golden case (each scenario under ``has``, ``steady_poisson``
+    also under ``kserve`` and ``fast``) run by the port on the host and
+    held to ``tests/goldens/<name>__<policy>.json``. Returns (cases, s)."""
+    from repro_torch.core.metrics import RunMetrics
+    from repro_torch.workloads.scenarios import get_scenario, scenario_names
+    golden_dir = os.path.join(ROOT, "tests", "goldens")
+    cases = [(name, "has") for name in scenario_names()]
+    cases += [("steady_poisson", "kserve"), ("steady_poisson", "fast")]
+    files = {f"{n}__{p}.json" for n, p in cases}
+    found = {f for f in os.listdir(golden_dir) if f.endswith(".json")}
+    if found != files:
+        raise AssertionError(f"[autoscale] goldens without a case "
+                             f"{sorted(found - files)}, cases without a "
+                             f"golden {sorted(files - found)}")
+    drift = []
+    t = time.perf_counter()
+    for name, policy in cases:
+        metrics = get_scenario(name).run(policy=policy, seed=GOLDEN_SEED,
+                                         duration_s=GOLDEN_DURATION_S).metrics
+        golden = RunMetrics.load(os.path.join(golden_dir,
+                                              f"{name}__{policy}.json"))
+        diffs = golden.diff(metrics, rel=GOLDEN_REL, abs_tol=GOLDEN_ABS)
+        if diffs:
+            drift.append(f"{name}/{policy}: " + "; ".join(diffs))
+    took = time.perf_counter() - t
+    if drift:
+        raise AssertionError("[autoscale] the port drifted from the golden "
+                             "corpus:\n  " + "\n  ".join(drift))
+    return cases, took
+
+
+def phase_autoscale(seed):
+    """[autoscale]: the golden corpus on the host, the serve_autoscale
+    twin's part 2 and its part 1 on the card (see the module docstring).
+    Returns part 1's kernel launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.examples import serve_autoscale
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t_phase = time.perf_counter()
+    cases, took = check_goldens()
+    print(f"[autoscale] the port reproduced all {len(cases)} golden cases "
+          f"(seed {GOLDEN_SEED}, {GOLDEN_DURATION_S:.0f} s each; rel "
+          f"{GOLDEN_REL}, abs {GOLDEN_ABS}) on the host in {took:.2f} s")
+
+    t = time.perf_counter()
+    comparison = serve_autoscale.part2()
+    for name, rec in comparison.items():
+        if not (np.isfinite(rec["cost_per_1k"]) and rec["cost_per_1k"] > 0
+                and np.isfinite(rec["p95"])):
+            raise AssertionError(f"[autoscale] part 2 {name}: {rec}")
+    print(f"[autoscale] part 2 (the platform comparison) on the host in "
+          f"{time.perf_counter() - t:.2f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.launches = da.launches = 0
+    run = serve_autoscale.part1("cuda", seed)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    cfg, engine = run.cfg, run.engine
+    done = run.done_low + run.done_high
+    if len(done) != 16 or any(r.output is None or len(r.output) != 4
+                              or not ((r.output >= 0)
+                                      & (r.output < cfg.vocab_size)).all()
+                              for r in done):
+        raise AssertionError(f"[autoscale] part 1 served {len(done)} "
+                             f"requests; want 16 of 4 tokens each")
+    quota = run.scheduler.ledgers[run.vgpu.uuid].quota_of(engine.pod.pod_id)
+    if not (run.engine_before is engine and run.engine_after is engine
+            and quota == 0.9):
+        raise AssertionError(f"[autoscale] part 1: engine kept across "
+                             f"set_quota {run.engine_after is engine}, "
+                             f"ledger quota {quota}, want 0.9")
+    # every batch is one prefill and 4 decode steps; each launches its
+    # attention kernel once a layer
+    n_pre, n_dec = run.batches, 4 * run.batches
+    want = {"flash_attention": cfg.num_layers * n_pre,
+            "decode_attention": cfg.num_layers * n_dec}
+    if (launches != want or engine.libhas.launches != n_pre + n_dec
+            or cfg != ARCHS["qwen2.5-3b"]):
+        raise AssertionError(f"[autoscale] part 1 ({cfg.name}, "
+                             f"{cfg.num_layers} layers, d_model "
+                             f"{cfg.d_model}): launches {launches}, want "
+                             f"{want}; {engine.libhas.launches} dispatches")
+    print(f"[autoscale] part 1: full-width {cfg.name} ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.dtype}) on an h100 vGPU pod "
+          f"(sm 4, batch 4, max_seq 64): 16 requests of 8 tokens, 4 new "
+          f"each, in {n_pre} prefills and {n_dec} decode steps; the same "
+          f"engine across set_quota, ledger quota {quota}; launches "
+          f"{launches} = {cfg.num_layers} layers x steps")
+    print(f"[autoscale] part 1 per-request wall time (printed, not held): "
+          f"{run.wall_low_s * 1e3:.2f} ms at quota 0.3, "
+          f"{run.wall_high_s * 1e3:.2f} ms at quota 0.9 "
+          f"({run.wall_low_s / run.wall_high_s:.2f}x)")
+
+    # one prefill's flash launches (an 8-row prefill, below the kernel's
+    # 64-key and 128-row tiles) and one decode step's decode launches
+    # (a 64-slot ring: one tile, a split of 1) against their plain
+    # versions on the same inputs
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(4, 8)),
+                           device=engine.device)
+    with holding([(fa, "flash_attention", ref.flash_attention_ref),
+                  (da, "decode_attention", ref.decode_attention_ref)]) as seen:
+        logits, cache = engine._prefill(engine.params, {"tokens": toks})
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        engine._decode(engine.params, tok, 8, cache)
+    torch.cuda.synchronize()
+    want_shapes = {"flash_attention": {((4, 8, 2, 8, 128), (4, 8, 2, 128))},
+                   "decode_attention": {((4, 1, 2, 8, 128), (4, 64, 2, 128))}}
+    for name, runs in seen.items():
+        worst = max(e for _, e in runs) if runs else float("nan")
+        shapes = {s for s, _ in runs}
+        print(f"[autoscale] {name}: {len(runs)} launches at inputs "
+              f"{sorted(shapes)}, kernel vs plain on the same inputs, "
+              f"{cfg.dtype}: max rel err {worst:.3g} (tol {SERVE_TOL})")
+        if (len(runs) != cfg.num_layers or shapes != want_shapes[name]
+                or not worst <= SERVE_TOL):
+            raise AssertionError(f"[autoscale] {name}: {len(runs)} launches "
+                                 f"at {shapes}, want {cfg.num_layers} at "
+                                 f"{want_shapes[name]}; rel err {worst}")
+    del run, engine, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[autoscale] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def device_busy_ms(fn, launches=1, attempts=3):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
@@ -1772,6 +1931,8 @@ def main(argv=None):
         for kernel, n in counts.items():
             launches[kernel] += n
     for kernel, n in phase_calibrate(args.seed).items():
+        launches[kernel] += n
+    for kernel, n in phase_autoscale(args.seed).items():
         launches[kernel] += n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -60,6 +60,9 @@ def test_flash_kernel_on_card(cuda, S, K, G, hd, dtype, causal, window):
     (2, 300, 300, 1, 16, 64),   # 16 heads packed: 8 positions a block
     (2, 200, 200, 2, 3, 128),   # G does not divide 128: one head a block
     (1, 77, 333, 2, 6, 64),     # S != T, G does not divide 128
+    (4, 8, 8, 2, 8, 128),       # serve_autoscale's 8-token prefill: one
+                                # work tile of 16 positions, 8 of them past S
+    (4, 8, 64, 2, 8, 128),      # 8 queries over a full 64-key tile
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
 def test_flash_kernel_gqa_packing_on_card(cuda, B, S, T, K, G, hd, causal,
@@ -121,7 +124,12 @@ def test_flash_kernel_refuses_other_head_dims(cuda, hd):
 @pytest.mark.parametrize("B,T,K,G,hd,pos", [(8, 1024, 2, 8, 128, 600),
                                             (8, 1024, 2, 8, 128, 5000),
                                             (3, 100, 1, 4, 64, 50),
-                                            (8, 1024, 16, 1, 128, 600)])
+                                            (8, 1024, 16, 1, 128, 600),
+                                            # serve_autoscale's 64-slot
+                                            # ring: one tile, a split of 1
+                                            (4, 64, 2, 8, 128, 8),
+                                            (4, 64, 2, 8, 128, 63),
+                                            (4, 64, 2, 8, 128, 200)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_on_card(cuda, B, T, K, G, hd, pos, dtype):
     gen = torch.Generator(device=cuda).manual_seed(T + pos)
