@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Eleven phases; any failure raises and the exit code is non-zero.
+Twelve phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -152,9 +152,32 @@ deepseek's 16 heads of 128 with one query head a KV head.
    ring (one tile, a split of 1) against the plain versions on the same
    inputs (bf16, <= 3e-2).
 
+12. Train: full-width, full-depth olmo-1b (16 layers, d_model 2048, vocab
+   50304, tied embeddings; random bf16 weights from ``--seed``), after the
+   earlier models are freed, trained for 20 steps through the port's
+   launcher (``repro_torch.launch.train.train``) at batch 8, sequence
+   1024: ``AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=50)``, f32
+   moments, ``CallOpts(remat=True)``, ``SyntheticLMData(seed=1)``. Holds
+   every step's loss and grad norm finite, the mean of the last 3 losses
+   below the first - 0.5, and 0 kernel launches during the steps (the
+   counts reset just before and read just after: training takes the
+   plain path, as the reference's). Holds one step's loss and gradients
+   from the same state with remat and without (within 1e-2 of each
+   leaf's max) and remat's peak memory below the other's; a step at 1 and at 4 microbatches on
+   the same batch (loss rel 2e-2, params 5e-2: the reference's limits);
+   the launcher's ``--ckpt`` tree written under ``build/`` and read back
+   equal; and olmo-1b at full width cut to 2 layers, fresh f32 weights,
+   TF32 off, one train step at B 1, S 128 on the card against the same
+   step on the host's CPU (loss rel 1e-5, each gradient leaf within 1e-4
+   of its max). Prints, not held: the median step wall (host clock around
+   ``torch.cuda.synchronize()``), tokens/s, model FLOPs a step and their
+   share of 989 TFLOP/s, AdamW's share of a step (CUDA events), one
+   step's device busy and idle share with its top operators
+   (torch.profiler), and the peak memory.
+
 The line before the last is the kernels record as JSON (each kernel's
 launches summed over every served phase, the calibrate phase and part 1
-of the autoscale phase); the last line is
+of the autoscale phase; the train phase launches none); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1863,6 +1886,260 @@ def phase_autoscale(seed):
     return launches
 
 
+# [train]: the launcher's default arch at full width and depth, batch and
+# sequence, the step count, and the card-vs-host check's cut
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "olmo-1b", 8, 1024, 20
+HOST_LAYERS, HOST_BATCH, HOST_SEQ = 2, 1, 128
+CARD = "cuda"   # the device [train] trains on
+
+
+def grads_of(params, cfg, batch, opts):
+    """(loss, gradient leaves) of the train loss at ``params``."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.training import steps
+    flat, spec = pytree.tree_flatten(params)
+    work = [t.detach().requires_grad_() for t in flat]
+    loss, _ = steps.loss_fn(pytree.tree_unflatten(work, spec), cfg, batch,
+                            opts)
+    return float(loss.detach()), list(torch.autograd.grad(loss, work))
+
+
+def leaf_errors(got, want):
+    """max over leaves of max |got - want| / max |want|."""
+    return max(errors(g, w)[1] for g, w in zip(got, want))
+
+
+def check_train_on_host(seed):
+    """olmo-1b at full width cut to ``HOST_LAYERS`` layers, fresh f32
+    weights, TF32 off: one train step on the card against the same step on
+    this machine's CPU (loss rel 1e-5, each gradient leaf within 1e-4 of
+    its max)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import CallOpts
+    from repro_torch.training import optimizer as opt_mod, steps
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], num_layers=HOST_LAYERS,
+                              dtype="float32")
+    host = models.init_params(cfg, seed=seed, device="cpu")
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (HOST_BATCH, HOST_SEQ))
+    adamw = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=50)
+    opts = CallOpts(remat=True)
+    out = {}
+    for dev in (CARD, "cpu"):
+        params = pytree.tree_map(lambda t: t.to(dev), host)
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        t = time.perf_counter()
+        _, _, m = steps.make_train_step(cfg, adamw, opts)(
+            params, opt_mod.init_opt_state(params), batch)
+        loss, grads = grads_of(params, cfg, batch, opts)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [g.cpu() for g in grads], time.perf_counter() - t)
+        del params, batch, grads
+    (card, card_g, card_s), (cpu, cpu_g, cpu_s) = out[CARD], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = leaf_errors(card_g, cpu_g)
+    print(f"[train] card vs host: {TRAIN_ARCH} at full width cut to "
+          f"{HOST_LAYERS} layers, f32, TF32 off, B {HOST_BATCH} S "
+          f"{HOST_SEQ}: loss {card['loss']:.6f} vs {cpu['loss']:.6f} (rel "
+          f"{loss_rel:.3g}, tol 1e-5), grad norm rel "
+          f"{abs(card['grad_norm'] - cpu['grad_norm']) / cpu['grad_norm']:.3g}"
+          f", worst gradient leaf {grad_rel:.3g} of its max (tol 1e-4); "
+          f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the host")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        raise AssertionError(f"[train] card vs host: loss rel {loss_rel}, "
+                             f"gradient {grad_rel}")
+
+
+def phase_train(seed):
+    """[train]: full-width olmo-1b trained on the card through the port's
+    launcher (see the module docstring). Returns nothing: the train path
+    launches no kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import train as launch
+    from repro_torch.models import CallOpts
+    from repro_torch.training import (checkpoint, data as data_mod,
+                                      optimizer as opt_mod, steps)
+    from repro_torch.weights import jax_ndim
+    from torch.utils import _pytree as pytree
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ARCHS[TRAIN_ARCH]
+    adamw = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=50)
+    opts = CallOpts(remat=True)
+    print(f"[train] before {cfg.name}: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated; {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"tied {cfg.tie_embeddings}, {cfg.param_count() / 1e9:.3f} B "
+          f"params, {cfg.dtype}; AdamW {adamw}; {opts}")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = da.launches = ss.launches = mg.launches = 0
+    mg.gated_launches = 0
+    run = launch.train(cfg, adamw, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, device=CARD, seed=seed,
+                       log=lambda line: print(f"[train] {line}"))
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches,
+                "ssd_chunk_scan": ss.launches, "gmm": mg.launches,
+                "gmm_gated": mg.gated_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in run.metrics]
+    gnorms = [m["grad_norm"] for m in run.metrics]
+    bar = losses[0] - 0.5
+    last3 = sum(losses[-3:]) / 3
+    n_params = sum(t.numel() for t in pytree.tree_leaves(run.params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs a step (PaLM's count: 6 N a token for the matmuls, 12 L d
+    # S a token for attention), and the operations remat adds (one more
+    # forward: 2 N and 4 L d S a token)
+    flops = tokens * (6 * n_params + 12 * cfg.num_layers * cfg.d_model
+                      * TRAIN_SEQ)
+    remat_flops = tokens * (2 * n_params + 4 * cfg.num_layers * cfg.d_model
+                            * TRAIN_SEQ)
+    step_s = statistics.median(run.step_s)
+    print(f"[train] {TRAIN_STEPS} steps at B {TRAIN_BATCH} S {TRAIN_SEQ}: "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[train] grad norms {', '.join(f'{x:.3f}' for x in gnorms)}")
+    print(f"[train] step wall (host clock around torch.cuda.synchronize): "
+          f"median {step_s * 1e3:.2f} ms, min {min(run.step_s) * 1e3:.2f}, "
+          f"first {run.step_s[0] * 1e3:.2f}; {tokens / step_s:.0f} tokens/s; "
+          f"model FLOPs a step {flops / 1e12:.2f} T ({n_params / 1e9:.3f} B "
+          f"params; + {remat_flops / 1e12:.2f} T recomputed by remat), "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{flops / step_s / PEAK_BF16:.3f} of 989 TFLOP/s; peak "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    print(f"[train] kernel launches during the steps: {launches}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+            and last3 < bar and not any(launches.values())):
+        raise AssertionError(f"[train] losses {losses}, grad norms {gnorms}"
+                             f" (mean of the last 3 {last3} must be below "
+                             f"{bar}), launches {launches}")
+    print(f"[train] loss bar: mean of the last 3 {last3:.4f} < first - 0.5 "
+          f"= {bar:.4f}")
+
+    params, state = run.params, run.opt_state
+    ds = data_mod.SyntheticLMData(cfg.vocab_size, seed=1)
+    batch = launch.batch_at(cfg, ds, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                            CARD)
+    train_step = steps.make_train_step(cfg, adamw, opts)
+
+    # one step's device busy and idle share
+    def one_step():
+        return train_step(params, state, batch)
+    one_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    busy, top, ops = device_busy_ms(one_step)
+    if busy is None:
+        print(f"[profile] {cfg.name} train step: device time not measured "
+              f"({top})")
+    else:
+        print(f"[profile] {cfg.name} train step: device busy {busy:.2f} ms "
+              f"of {wall:.2f} ms wall just before (idle share "
+              f"{1 - busy / wall:.3f}) and of the run's median "
+              f"{step_s * 1e3:.2f} ms (idle share "
+              f"{1 - busy / (step_s * 1e3):.3f}); top kernels: "
+              + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top))
+        print(f"[profile] {cfg.name} train step: top operators by their own "
+              f"device time: " + "; ".join(f"{n} {ms:.2f} ms"
+                                          for n, ms in ops))
+
+    # remat against no remat: one step's loss and gradients from the same
+    # state, and each one's peak memory
+    res = {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        loss, grads = grads_of(params, cfg, batch, CallOpts(remat=remat))
+        torch.cuda.synchronize()
+        res[remat] = (loss, grads, torch.cuda.max_memory_allocated() / 2**30,
+                      base)
+        del grads
+    (l_on, g_on, p_on, b_on), (l_off, g_off, p_off, b_off) = \
+        res[True], res[False]
+    loss_rel = abs(l_on - l_off) / abs(l_off)
+    grad_rel = leaf_errors(g_on, g_off)
+    print(f"[train] remat vs none, one step's gradients from the same state:"
+          f" loss {l_on:.6f} vs {l_off:.6f} (rel {loss_rel:.3g}), worst "
+          f"gradient leaf {grad_rel:.3g} of its max (tol 1e-2); peak "
+          f"{p_on:.2f} GiB with remat, {p_off:.2f} GiB without (from "
+          f"{b_on:.2f} and {b_off:.2f} GiB allocated before)")
+    if not (loss_rel <= 1e-2 and grad_rel <= 1e-2 and p_on < p_off):
+        raise AssertionError(f"[train] remat: loss rel {loss_rel}, "
+                             f"gradient {grad_rel}, peaks {p_on} / {p_off}")
+    del res, g_off
+    # the optimizer's share of a step
+    decay = pytree.tree_unflatten(
+        [n >= 2 for n in pytree.tree_leaves(jax_ndim(params, cfg))],
+        pytree.tree_structure(params))
+    grads_tree = pytree.tree_unflatten(g_on, pytree.tree_structure(params))
+    opt_ms = cuda_ms(lambda: opt_mod.apply_updates(
+        adamw, params, grads_tree, state, decay), iters=3, warmup=1)
+    print(f"[train] AdamW (apply_updates, {len(g_on)} leaves, one loop "
+          f"over them) {opt_ms:.2f} ms by CUDA events: "
+          f"{opt_ms / (step_s * 1e3):.3f} of the median step")
+    del g_on, grads_tree
+
+    # microbatches: M = 1 against M = 4 on the same batch and state
+    out = {}
+    for m in (1, 4):
+        new, _, metrics = steps.make_train_step(cfg, adamw, opts, m)(
+            params, state, batch)
+        out[m] = (new, float(metrics["loss"]))
+        del metrics
+    mb_rel = abs(out[1][1] - out[4][1]) / abs(out[1][1])
+    mb_err = max(errors(a, b)[0] for a, b in zip(
+        pytree.tree_leaves(out[1][0]), pytree.tree_leaves(out[4][0])))
+    print(f"[train] microbatches 1 vs 4 (strided split, f32 accumulation): "
+          f"loss {out[1][1]:.6f} vs {out[4][1]:.6f} (rel {mb_rel:.3g}, tol "
+          f"2e-2), max |param difference| {mb_err:.3g} (tol 5e-2)")
+    if not (mb_rel <= 2e-2 and mb_err < 5e-2):
+        raise AssertionError(f"[train] microbatches: {mb_rel}, {mb_err}")
+    del out
+
+    # the checkpoint: the launcher's --ckpt tree, written and read back
+    path = os.path.join(ROOT, "build", "train_smoke.npz")
+    t = time.perf_counter()
+    checkpoint.save(path, {"params": params}, cfg)
+    saved = (time.perf_counter() - t, os.path.getsize(path) / 2**30)
+    t = time.perf_counter()
+    back = checkpoint.restore(path, {"params": params}, cfg)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(back), pytree.tree_leaves({"params": params})))
+    print(f"[train] checkpoint {os.path.relpath(path, ROOT)}: "
+          f"{saved[1]:.2f} GiB written in {saved[0]:.1f} s, restored in "
+          f"{time.perf_counter() - t:.1f} s, equal to the saved params: "
+          f"{same}")
+    os.unlink(path)
+    if not same:
+        raise AssertionError("[train] the restored checkpoint differs")
+    del run, params, state, batch, back, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_train_on_host(seed)
+    print(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def device_busy_ms(fn, launches=1, attempts=3):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
@@ -1934,6 +2211,7 @@ def main(argv=None):
         launches[kernel] += n
     for kernel, n in phase_autoscale(args.seed).items():
         launches[kernel] += n
+    phase_train(args.seed)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "graph_ms")

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_autograd
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -56,6 +56,7 @@ def decode_attention(q, k, v, valid):
     (the Pallas kernel's finite NEG_INF), on the card as in the plain
     version."""
     global launches
+    refuse_autograd("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid)
     B, one, K, G, hd = q.shape

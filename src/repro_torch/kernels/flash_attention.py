@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_autograd
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -34,6 +34,7 @@ def _kernel():
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: (B, S, K, G, hd); k, v: (B, T, K, hd) -> (B, S, K, G, hd)."""
     global launches
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     B, S, K, G, hd = q.shape

@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_autograd
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
@@ -56,6 +56,7 @@ def _gated_kernel():
 def gmm(x, w):
     """x: (E, C, K) @ w: (E, K, N) -> (E, C, N) in x's dtype, f32 sums."""
     global launches
+    refuse_autograd("gmm", x, w)
     if x.device.type == "cpu":
         return ref.gmm_ref(x, w)
     if x.dim() != 3 or w.dim() != 3:
@@ -94,6 +95,7 @@ def gmm_gated(x, w_gate, w_up, act="silu"):
     rows; w_gate, w_up: (E, K, N) -> (E, C, N) or (E, G*C, N) in x's
     dtype, f32 sums. act: "silu" or "gelu" (tanh approximation)."""
     global gated_launches
+    refuse_autograd("gmm_gated", x, w_gate, w_up)
     if x.device.type == "cpu":
         return ref.gmm_gated_ref(x, w_gate, w_up, act)
     if x.dim() not in (3, 4) or w_gate.dim() != 3:
@@ -144,6 +146,7 @@ def expert_ffn(xe, w_gate, w_up, w_down, act="silu"):
     ``gmm_gated`` reads xe in place and gives h = act(x Wg) * (x Wu) in
     xe's dtype, the tokens of all G groups of an expert as the rows of one
     (G*C, f) block; then ``gmm(h, Wd)``."""
+    refuse_autograd("expert_ffn", xe, w_gate, w_up, w_down)
     G, E, C, d = xe.shape
     h = gmm_gated(xe, w_gate, w_up, "silu" if act == "silu" else "gelu")
     y = gmm(h, w_down)

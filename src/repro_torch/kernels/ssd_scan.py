@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_autograd
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (head_dim, state size) pairs the kernel is built for: mamba2-2.7b's,
@@ -41,6 +41,7 @@ def ssd_chunk_scan(xc, Bc, Cc, dtc, dAc, h0):
     f32; h0: (B,nh,hd,N) f32. Returns (final (B,nh,hd,N) f32,
     y (nc,B,Q,nh,hd) f32)."""
     global launches
+    refuse_autograd("ssd_chunk_scan", xc, Bc, Cc, dtc, dAc, h0)
     if xc.device.type == "cpu":
         return ref.ssd_chunk_scan_ref(xc, Bc, Cc, dtc, dAc, h0)
     nc, B, Q, nh, hd = xc.shape

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, ffn as ffn_mod, ssm as ssm_mod
 
@@ -22,8 +23,12 @@ class CallOpts:
     """Runtime (non-architecture) options for a model call.
 
     The same fields and defaults as the JAX package's ``CallOpts``. The
-    sharding hints (``logits_spec``, ``act_spec``, ``attn_seq_shard``) and
-    ``remat`` have no effect on one device and are carried for parity."""
+    sharding hints (``logits_spec``, ``act_spec``, ``attn_seq_shard``) have
+    no effect on one device and are carried for parity. ``remat``
+    checkpoints each block of a full-sequence pass without a cache (the
+    train step's): ``torch.utils.checkpoint`` keeps the block's input and
+    recomputes the rest in the backward, as ``jax.checkpoint`` on the
+    reference's scanned period body. Prefill and decode never remat."""
     use_kernels: bool = False
     attn_chunk: int = 4096
     capacity_factor: float = 1.25
@@ -198,8 +203,14 @@ def apply_stack(cfg, layers, h, positions, opts: CallOpts,
     """Full-sequence stack. Returns (h, aux_total, cache_or_None)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = []
+    remat = opts.remat and kv_len is None
     for kind, p in zip(layer_kinds(cfg), layers):
-        h, aux, ce = apply_block_full(cfg, kind, p, h, positions, opts, kv_len)
+        if remat:
+            h, aux, ce = checkpoint(apply_block_full, cfg, kind, p, h,
+                                    positions, opts, use_reentrant=False)
+        else:
+            h, aux, ce = apply_block_full(cfg, kind, p, h, positions, opts,
+                                          kv_len)
         aux_total = aux_total + aux
         cache.append(ce)
     return h, aux_total, (cache if kv_len is not None else None)

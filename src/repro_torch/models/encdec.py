@@ -14,11 +14,14 @@ self-attention through the decode kernel; cross-attention is plain
 PyTorch, as the reference's is (``attention.cross_attention``). The cache
 keeps the reference's layout: ``{"self": {"k", "v"}, "cross": (k, v)}``,
 each tensor stacked over the decoder layers (L, B, T, K, hd); decode
-writes the self-attention ring in place.
+writes the self-attention ring in place. With ``CallOpts.remat`` the
+teacher-forced ``forward`` checkpoints each encoder and decoder layer, as
+the reference's ``jax.checkpoint`` on its scanned bodies.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, ffn as ffn_mod, lm
@@ -72,14 +75,21 @@ def encode(params, cfg, frame_embeds, opts: CallOpts = CallOpts()):
     dt = common.dtype_of(cfg)
     h = frame_embeds.to(dt) + _rows(params["pos_enc"], pos).to(dt)
     for lp in params["encoder"]:
-        hn = common.apply_norm(cfg, lp["ln1"], h)
-        h = h + attention.self_attention(cfg, lp["attn"], hn, pos,
-                                         causal=False,
-                                         attn_chunk=opts.attn_chunk,
-                                         use_kernels=opts.use_kernels)
-        hn = common.apply_norm(cfg, lp["ln_ffn"], h)
-        h = h + ffn_mod.dense_ffn(cfg, lp["ffn"], hn)
+        if opts.remat:
+            h = checkpoint(_encoder_layer, cfg, lp, h, pos, opts,
+                           use_reentrant=False)
+        else:
+            h = _encoder_layer(cfg, lp, h, pos, opts)
     return common.apply_norm(cfg, params["ln_enc"], h)
+
+
+def _encoder_layer(cfg, lp, h, pos, opts):
+    hn = common.apply_norm(cfg, lp["ln1"], h)
+    h = h + attention.self_attention(cfg, lp["attn"], hn, pos, causal=False,
+                                     attn_chunk=opts.attn_chunk,
+                                     use_kernels=opts.use_kernels)
+    hn = common.apply_norm(cfg, lp["ln_ffn"], h)
+    return h + ffn_mod.dense_ffn(cfg, lp["ffn"], hn)
 
 
 def _stacked_kv(cfg, batch, T, dtype, device):
@@ -136,7 +146,12 @@ def forward(params, cfg, tokens, frame_embeds, opts: CallOpts = CallOpts()):
                                                  opts))
     h, pos = _decoder_input(params, cfg, tokens)
     for i, lp in enumerate(params["decoder"]):
-        h, _ = _decoder_layer_full(cfg, lp, h, pos, (ck[i], cv[i]), opts, None)
+        if opts.remat:
+            h, _ = checkpoint(_decoder_layer_full, cfg, lp, h, pos,
+                              (ck[i], cv[i]), opts, None, use_reentrant=False)
+        else:
+            h, _ = _decoder_layer_full(cfg, lp, h, pos, (ck[i], cv[i]), opts,
+                                       None)
     h = common.apply_norm(cfg, params["ln_dec"], h)
     return _logits(params, h), torch.zeros((), dtype=torch.float32,
                                            device=h.device)

@@ -13,7 +13,11 @@ f32 einsum does. On the card it is one ``torch.mm(..., out_dtype=float32)``
 over the bf16 table (cuBLAS accumulates in f32 and writes f32), so no f32
 copy of the table is made. On the CPU both operands are widened to f32
 first. The products of two bf16 numbers are exact in f32 either way; the
-two paths differ only in the order of the f32 sums.
+two paths differ only in the order of the f32 sums. ``aten::mm.dtype``
+has no derivative, so the card's product is a ``torch.autograd.Function``
+(``_Logits``) whose backward forms ``dh = g @ wᵀ`` and ``dw = hᵀ @ g``
+from the f32 cotangent in f32 and casts each to its operand's dtype: the
+gradients autograd gives the CPU's widened product.
 """
 from __future__ import annotations
 
@@ -63,11 +67,30 @@ def _unembed(cfg, p, h):
     return logits_of(h, p["embed"].t() if cfg.tie_embeddings else p["unembed"])
 
 
+class _Logits(torch.autograd.Function):
+    """``torch.mm(h, w, out_dtype=float32)`` with a backward in f32."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = torch.mm(g, w.float().t()).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(h.float().t(), g).to(w.dtype)
+        return dh, dw
+
+
 def logits_of(h, w):
     """f32 logits (B, S, V) of h (B, S, d) against w (d, V)."""
     B, S, d = h.shape
     if h.device.type == "cuda" and h.dtype != torch.float32:
-        out = torch.mm(h.reshape(B * S, d), w, out_dtype=torch.float32)
+        out = _Logits.apply(h.reshape(B * S, d), w)
     else:
         out = h.reshape(B * S, d).float() @ w.float()
     return out.reshape(B, S, -1)

@@ -1,14 +1,17 @@
-"""The port's twin of ``examples/serve_autoscale.py``.
+"""The port's twins of ``examples/serve_autoscale.py`` and
+``examples/train_small.py``.
 
 Part 2 (the simulated platform comparison) must give the JAX example's
 numbers exactly: its loop is rebuilt here on the JAX package. Part 1
 (live serving with a vertical scale-up) runs on the CPU at the reduced
-width, where the kernel wrappers run their plain versions. No assertion
-depends on CPU timing.
+width, where the kernel wrappers run their plain versions. The
+train_small twin takes three steps on the CPU. No assertion depends on
+CPU timing.
 """
 import numpy as np
+import torch
 
-from repro_torch.examples import serve_autoscale
+from repro_torch.examples import serve_autoscale, train_small
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 
@@ -79,3 +82,25 @@ def test_main_on_cpu_runs_both_parts(capsys):
     out = capsys.readouterr().out
     assert "=== live serving" in out and "no restart" in out
     assert "=== platform comparison" in out
+
+
+def test_train_small_on_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)   # the example writes results/olmo-100m.npz
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)      # the suite runs in several processes
+    try:
+        run = train_small.main(["--device", "cpu", "--steps", "3"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    ckpt = tmp_path / "results" / "olmo-100m.npz"
+    assert "model: olmo-100m  params~101M" in out
+    assert "checkpoint written to results/olmo-100m.npz" in out
+    assert run.cfg.num_layers == 8 and run.cfg.d_model == 768
+    assert [ln.split()[1] for ln in out.splitlines()
+            if ln.startswith("step")] == ["0", "2"]
+    losses = [m["loss"] for m in run.metrics]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    with np.load(ckpt) as z:
+        assert z["params/stack/periods/0/attn/wq"].shape == (8, 768, 768)

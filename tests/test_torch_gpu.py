@@ -605,3 +605,119 @@ def test_profiling_harness_on_card(cuda):
         rec, = profile_kernels(warmup=1, iters=2, names=[name])
         assert count() == before + 3, name
         assert rec["measured_s"] > 0 and rec["ref_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the train path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tied", [True, False])
+def test_logits_backward_on_card(cuda, tied):
+    """``logits_of`` on bf16 operands: the forward is the one
+    ``torch.mm(..., out_dtype=float32)`` serving uses, and its backward
+    equals autograd of the widened product (f32 GEMMs, TF32 off), with the
+    table's gradient reaching a tied ``embed`` through its view."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    embed = (torch.randn((512, 128), generator=gen, device=cuda) * 0.5
+             ).bfloat16()
+    unembed = (torch.randn((128, 512), generator=gen, device=cuda) * 0.5
+               ).bfloat16()
+    h = torch.randn((2, 24, 128), generator=gen, device=cuda).bfloat16()
+    g = torch.randn((2, 24, 512), generator=gen, device=cuda)
+    grads = {}
+    for widened in (False, True):
+        e = embed.clone().requires_grad_()
+        u = unembed.clone().requires_grad_()
+        hr = h.clone().requires_grad_()
+        w = e.t() if tied else u
+        if widened:
+            out = (hr.reshape(48, 128).float() @ w.float()).reshape(2, 24, -1)
+        else:
+            out = lm.logits_of(hr, w)
+            assert out.grad_fn is not None and out.dtype == torch.float32
+            assert torch.equal(out.detach(), torch.mm(
+                h.reshape(48, 128), w.detach(),
+                out_dtype=torch.float32).reshape(2, 24, -1))
+        out.backward(g)
+        grads[widened] = (hr.grad, (e if tied else u).grad)
+    for got, want in zip(grads[False], grads[True]):
+        assert got is not None and got.dtype == torch.bfloat16
+        assert rel_err(got, want) <= 1e-6
+
+
+def _train_step_on(arch, device, B=2, S=64):
+    """One reduced f32 train step of ``arch`` on ``device`` from the same
+    seeded weights and batch, and the gradients of its loss: (metrics,
+    gradient leaves on the CPU)."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import CallOpts
+    from repro_torch.training import optimizer as opt_mod, steps
+    from torch.utils import _pytree as pytree
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    params = pytree.tree_map(lambda t: t.to(device),
+                             models.init_params(cfg, seed=3, device="cpu"))
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (B, S)), device=device)}
+    opts = CallOpts(remat=True, capacity_factor=100.0)
+    step = steps.make_train_step(
+        cfg, opt_mod.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10),
+        opts)
+    _, _, m = step(params, opt_mod.init_opt_state(params), batch)
+    flat, spec = pytree.tree_flatten(params)
+    work = [t.detach().requires_grad_() for t in flat]
+    loss, _ = steps.loss_fn(pytree.tree_unflatten(work, spec), cfg, batch,
+                            opts)
+    grads = torch.autograd.grad(loss, work)
+    return ({k: float(v) for k, v in m.items()}, [g.cpu() for g in grads])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-3b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """A reduced f32 train step on the card against the same step on the
+    CPU (TF32 off): loss, ce, grad norm and lr within rel 1e-5, and each
+    gradient leaf within 1e-4 of its max (+ 1e-6 of the largest gradient,
+    for leaves whose exact gradient is 0, as a key bias's)."""
+    got, got_g = _train_step_on(arch, cuda)
+    want, want_g = _train_step_on(arch, "cpu")
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), k
+    top = max(float(w.abs().max()) for w in want_g)
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).abs().max()) <= (1e-4 * float(b.abs().max())
+                                              + 1e-6 * top)
+
+
+@pytest.mark.gpu
+def test_remat_lowers_peak_memory_on_card(cuda):
+    """One train step of an olmo-1b stack (4 layers, d_model 1024, S 1024)
+    with remat peaks below the same step without it."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import CallOpts
+    from repro_torch.training import optimizer as opt_mod, steps
+    cfg = dataclasses.replace(ARCHS["olmo-1b"], num_layers=4, d_model=1024,
+                              num_heads=8, num_kv_heads=8, d_ff=4096,
+                              vocab_size=8192)
+    params = models.init_params(cfg, seed=0, device=cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 1024),
+                                     device=cuda)}
+    peak = {}
+    for remat in (False, True):
+        step = steps.make_train_step(cfg, opt_mod.AdamWConfig(),
+                                     CallOpts(remat=remat))
+        state = opt_mod.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated()
+        assert np.isfinite(float(m["loss"]))
+        del state, m
+    assert peak[True] < peak[False]
