@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Twelve phases; any failure raises and the exit code is non-zero.
+Thirteen phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -175,10 +175,31 @@ deepseek's 16 heads of 128 with one query head a KV head.
    step's device busy and idle share with its top operators
    (torch.profiler), and the peak memory.
 
+13. RaPP: the port's operator-graph extractor on the host over the
+   rapp_train twin's corpus (olmo-1b, qwen2.5-3b, gemma-7b, mamba2-2.7b,
+   deepseek-moe-16b at full width, batches 1, 4, 16): each graph's trace
+   and coarsening seconds, node and edge counts before and after
+   ``_coarsen``, class counts and dot FLOPs; holds that each coarsens to
+   at most ``MAX_NODES``. Then the twin
+   (``repro_torch.examples.rapp_train.run``): the dataset on the host,
+   800 AdamW steps and the evaluations on the card, the hybrid autoscaler
+   driven by the trained ``RaPPModel`` through 20, 60, 120 and 30 rps.
+   Holds the cluster's invariants and a train MAPE under 40% (the bar of
+   the reference's ``test_rapp_learns_better_than_random``). With the
+   trained params, TF32 off: ``forward_batch`` on the card within rel
+   1e-5 of the host's on 64 samples, one train step's loss within rel
+   1e-5 and each gradient leaf within 1e-4 of its max, and
+   ``predict_lattice`` for olmo-1b at batch 4 over 8 SMs x 10 quotas
+   within rel 1e-5 of per-point ``__call__`` on the card. Prints, not
+   held: the step time (CUDA events, host clock, device busy share), a
+   warm ``predict_lattice`` call, and a cold and a warm
+   ``CapacityTable(predictor=RaPPModel)`` fill of gemma-7b's six batches.
+   Holds that no kernel launched during the phase.
+
 The line before the last is the kernels record as JSON (each kernel's
 launches summed over every served phase, the calibrate phase and part 1
-of the autoscale phase; the train phase launches none); the last line is
-``{"ok": true, "device": {...}}``.
+of the autoscale phase; the train and RaPP phases launch none); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2140,6 +2161,192 @@ def phase_train(seed):
     print(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# [rapp]: the rapp_train twin's corpus on the host, its training on the
+# card, and the card-vs-host and lattice checks' sizes
+RAPP_CHECK_ROWS = 64                 # samples of the card-vs-host batch
+RAPP_SMS = tuple(range(1, 9))        # the lattice check: 8 SMs x 10 quotas
+RAPP_QUOTAS = tuple(round(0.1 * i, 1) for i in range(1, 11))
+
+
+def phase_rapp(seed):
+    """[rapp]: RaPP in the port (see the module docstring). Returns
+    nothing: RaPP launches no kernel."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import CapacityTable, FnSpec
+    from repro_torch.core.capacity import DEFAULT_BATCHES
+    from repro_torch.core.rapp import features as F, predictor as P
+    from repro_torch.core.rapp import train as T
+    from repro_torch.examples import rapp_train
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.training import optimizer as opt_mod
+
+    def counts():
+        return (fa.launches, da.launches, ss.launches, mg.launches,
+                mg.gated_launches)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = counts()
+
+    # 1. the extractor on the host, over the twin's corpus at full width
+    dot = F.OP_CLASSES.index("dot")
+    t_all = time.perf_counter()
+    for name in rapp_train.CORPUS:
+        for b in rapp_train.BATCHES:
+            t = time.perf_counter()
+            g = F.extract_graph(ARCHS[name], b)
+            t_x = time.perf_counter() - t
+            t = time.perf_counter()
+            c = F._coarsen(g, F.MAX_NODES)
+            t_c = time.perf_counter() - t
+            classes = ", ".join(f"{k} {int(n)}" for k, n in
+                                zip(F.OP_CLASSES, g.class_counts) if n)
+            dot_flops = sum(n.flops for n in g.nodes if n.op_class == dot)
+            print(f"[rapp] extract {name} b {b}: trace {t_x:.3f} s, coarsen "
+                  f"{t_c:.3f} s; {len(g.nodes)} nodes / {len(g.edges)} "
+                  f"edges -> {len(c.nodes)} / {len(c.edges)}; {classes}; "
+                  f"dot FLOPs {dot_flops:.6g} of {g.total_flops:.6g}")
+            if len(c.nodes) > F.MAX_NODES:
+                raise AssertionError(f"[rapp] {name} b {b} coarsens to "
+                                     f"{len(c.nodes)} > {F.MAX_NODES} nodes")
+    n_graphs = len(rapp_train.CORPUS) * len(rapp_train.BATCHES)
+    t_all = time.perf_counter() - t_all
+    print(f"[rapp] extraction on the host: {n_graphs} full-width graphs in "
+          f"{t_all:.2f} s ({t_all / n_graphs:.3f} s a graph, coarsening "
+          f"included)")
+
+    # 2. the rapp_train twin: the dataset on the host, training on the card
+    t = time.perf_counter()
+    splits = rapp_train.make_dataset(seed=0)
+    print(f"[rapp] dataset on the host in {time.perf_counter() - t:.2f} s")
+    run = rapp_train.run(CARD, splits=splits)
+    tr, va, te = splits
+    train_mape = T.evaluate(run.params, tr)
+    n = rapp_train.STEPS
+    print(f"[rapp] twin: {len(tr)}/{len(va)}/{len(te)} samples; {n} steps "
+          f"in {run.train_s:.2f} s = {n / run.train_s:.1f} steps/s "
+          f"(validation passes included); MAPE train {train_mape:.2f}% "
+          f"(bar 40%), val {run.val_mape:.2f}%, test {run.test_mape:.2f}%")
+    for rps, pods, kinds in run.steps:
+        print(f"[rapp] autoscaler at {rps:.0f} rps: pods (sm, quota) {pods},"
+              f" actions {kinds}")
+    if not (run.recon.invariant_ok() and train_mape < 40.0
+            and all(pods for _, pods, _ in run.steps)):
+        raise AssertionError(f"[rapp] twin: invariants "
+                             f"{run.recon.invariant_ok()}, train MAPE "
+                             f"{train_mape}, steps {run.steps}")
+
+    # the step alone: CUDA events and the host clock around 50 steps
+    step = T.make_step(opt_mod.AdamWConfig(
+        lr=T.TrainConfig.lr, warmup_steps=50, total_steps=n,
+        weight_decay=0.01))
+    idx = np.arange(min(64, len(tr)))
+    batch = T._batch_of(tr, idx, CARD)
+    labels = torch.from_numpy(tr.labels_logms[idx]).to(CARD)
+    params = pytree.tree_map(torch.clone, run.params)
+    state = opt_mod.init_opt_state(params)
+
+    def one():
+        nonlocal params, state
+        params, state, _ = step(params, state, batch, labels)
+    one()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step_ms = cuda_ms(one, iters=50, warmup=0)
+    wall_ms = (time.perf_counter() - t) * 1e3 / 50
+    busy, top, _ = device_busy_ms(one)
+    busy_s = (f"device busy not measured ({top})" if busy is None else
+              f"device busy {busy:.3f} ms under torch.profiler (idle share "
+              f"{1 - busy / wall_ms:.3f}); top kernels: "
+              + "; ".join(f"{n[:50]} {ms:.3f} ms" for n, ms in top[:4]))
+    print(f"[rapp] train step at B {len(idx)}: {step_ms:.3f} ms by CUDA "
+          f"events, {wall_ms:.3f} ms on the host clock; {busy_s}")
+    del params, state
+
+    # 3. card against host: forward, one train step, the lattice
+    host = pytree.tree_map(lambda x: x.cpu(), run.params)
+    idx = np.arange(min(RAPP_CHECK_ROWS, len(tr)))
+    args = ("node_feats", "adj", "mask", "global", "prior")
+    out = []
+    for params, dev in ((run.params, CARD), (host, "cpu")):
+        b = T._batch_of(tr, idx, dev)
+        lab = torch.from_numpy(tr.labels_logms[idx]).to(dev)
+        with torch.no_grad():
+            logl = P.forward_batch(params, *(b[k] for k in args)).cpu()
+        loss, grads = T.loss_and_grads(params, b, lab)
+        out.append((logl, float(loss),
+                    [g.cpu() for g in pytree.tree_leaves(grads)]))
+    (lc, loss_c, gc_), (lh, loss_h, gh) = out
+    fwd_rel = errors(lc, lh)[1]
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    grad_rel = leaf_errors(gc_, gh)
+    spec = FnSpec(ARCHS["olmo-1b"])
+    card = P.RaPPModel(run.params, seed=seed, device=CARD)
+    lat = card.predict_lattice(spec, 4, RAPP_SMS, RAPP_QUOTAS)
+    fresh = P.RaPPModel(run.params, seed=seed, device=CARD)
+    calls = np.array([[fresh(spec, 4, sm, q) for q in RAPP_QUOTAS]
+                      for sm in RAPP_SMS])
+    lat_rel = float(np.abs(lat - calls).max() / np.abs(calls).max())
+    print(f"[rapp] card vs host, the trained params, {len(idx)} samples, "
+          f"TF32 off: forward_batch rel {fwd_rel:.3g} (tol 1e-5); train "
+          f"step loss {loss_c:.6f} vs {loss_h:.6f} (rel {loss_rel:.3g}, tol "
+          f"1e-5), worst gradient leaf {grad_rel:.3g} of its max (tol "
+          f"1e-4); predict_lattice olmo-1b b 4, 8 SMs x 10 quotas, against "
+          f"per-point __call__ on the card: rel {lat_rel:.3g} (tol 1e-5)")
+    if not (fwd_rel <= 1e-5 and loss_rel <= 1e-5 and grad_rel <= 1e-4
+            and lat_rel <= 1e-5 and np.isfinite(lat).all()):
+        raise AssertionError(f"[rapp] card vs host: forward {fwd_rel}, loss "
+                             f"{loss_rel}, gradient {grad_rel}, lattice "
+                             f"{lat_rel}")
+
+    # 4. timings: a warm predict_lattice call, and CapacityTable fills
+    iters, warmup = 20, 3
+    t = time.perf_counter()
+    lat_ms = cuda_ms(lambda: card.predict_lattice(spec, 4, RAPP_SMS,
+                                                  RAPP_QUOTAS),
+                     iters=iters, warmup=warmup)
+    lat_wall = (time.perf_counter() - t) * 1e3 / (iters + warmup)
+    fill_spec = FnSpec(ARCHS["gemma-7b"])
+    for key in [k for k in P._GRAPH_CACHE if k[0] == "gemma-7b"]:
+        del P._GRAPH_CACHE[key]
+    fills = []
+    for _ in range(2):   # cold (extraction included), then warm
+        table = CapacityTable(predictor=card)
+        t = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for b in DEFAULT_BATCHES:
+            table.lattice(fill_spec, b)
+        end.record()
+        torch.cuda.synchronize()
+        fills.append(((time.perf_counter() - t) * 1e3,
+                      start.elapsed_time(end)))
+    print(f"[rapp] predict_lattice (80 points, warm): {lat_ms:.3f} ms by "
+          f"CUDA events, {lat_wall:.3f} ms on the host clock; "
+          f"CapacityTable(predictor=RaPPModel) fill of gemma-7b, "
+          f"{len(DEFAULT_BATCHES)} batches x 80 points: cold (extraction "
+          f"and features included) {fills[0][0]:.1f} ms host / "
+          f"{fills[0][1]:.1f} ms events, warm {fills[1][0]:.2f} ms host / "
+          f"{fills[1][1]:.2f} ms events")
+    after = counts()
+    print(f"[rapp] kernel launches during the phase: "
+          f"{[a - b for a, b in zip(after, before)]}")
+    if after != before:
+        raise AssertionError(f"[rapp] launched kernels: {before} -> {after}")
+    del run, card, fresh, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[rapp] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def device_busy_ms(fn, launches=1, attempts=3):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
@@ -2212,6 +2419,7 @@ def main(argv=None):
     for kernel, n in phase_autoscale(args.seed).items():
         launches[kernel] += n
     phase_train(args.seed)
+    phase_rapp(args.seed)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "graph_ms")

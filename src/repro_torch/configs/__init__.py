@@ -1,21 +1,22 @@
 """Config registry of the port: every architecture of the JAX package's
 ``configs/`` (the dense, MoE, SSM, hybrid, VLM and encoder-decoder
-families), the input-shape dataclass, and the GPU-type catalogue (copies
-of the JAX package's modules). ``configs/shapes.py`` is not copied yet:
-nothing on the serving path reads it."""
+families), the four input shapes, and the GPU-type catalogue (copies of
+the JAX package's modules)."""
 from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig, ShapeConfig, reduced
 from repro_torch.configs.gpus import (DEFAULT_GPU_TYPE, GPU_TYPES, GPUType,
                                       fleet_from_names, get_gpu_type)
+from repro_torch.configs.shapes import SHAPES, get_shape
 
 from repro_torch.configs import (command_r_35b, dbrx_132b, deepseek_moe_16b,
                                  gemma_7b, jamba_v0p1_52b, llava_next_34b,
                                  mamba2_2p7b, olmo_1b, qwen2p5_3b,
                                  whisper_medium)
 
+# the JAX package's registry order (RaPP's build_corpus draws in it)
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (qwen2p5_3b, olmo_1b, mamba2_2p7b, deepseek_moe_16b,
-                   dbrx_132b, jamba_v0p1_52b, gemma_7b, command_r_35b,
-                   llava_next_34b, whisper_medium)}
+         for m in (mamba2_2p7b, dbrx_132b, whisper_medium, qwen2p5_3b,
+                   jamba_v0p1_52b, llava_next_34b, deepseek_moe_16b,
+                   gemma_7b, command_r_35b, olmo_1b)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -30,7 +31,7 @@ def list_archs():
 
 __all__ = [
     "ArchConfig", "MoEConfig", "SSMConfig", "ShapeConfig", "reduced",
-    "ARCHS", "get_config", "list_archs",
+    "SHAPES", "get_shape", "ARCHS", "get_config", "list_archs",
     "GPUType", "GPU_TYPES", "DEFAULT_GPU_TYPE", "get_gpu_type",
     "fleet_from_names",
 ]

@@ -5,8 +5,9 @@ Re-configurator, Kalman workload prediction, hybrid auto-scaling
 (Algorithm 1), the baseline policies and the discrete-event cluster
 simulator, copied from the JAX package's ``core/`` (numpy on the host in
 both packages). It exports what the JAX package's ``core`` exports except
-``TickClusterSimulator``, that package's own parity reference. The port
-has no RaPP yet, so its ``CapacityTable`` takes any predictor callable.
+``TickClusterSimulator``, that package's own parity reference. RaPP, the
+learned latency predictor, is ``repro_torch.core.rapp``, imported on its
+own as in the JAX package.
 """
 from repro_torch.configs.gpus import (DEFAULT_GPU_TYPE, GPU_TYPES, GPUType,
                                       get_gpu_type)

@@ -1,8 +1,8 @@
 """Config-lattice capacity tables: the vectorized control plane.
 
 A copy of the JAX package's ``core/capacity.py``, imports rewritten. The
-port has no RaPP yet; the table takes any predictor callable, and one
-that exposes ``predict_lattice`` is filled in one call, as there.
+port's ``core.rapp.RaPPModel`` exposes ``predict_lattice`` and fills a
+lattice in one call, as there; any other predictor callable still works.
 
 The hybrid autoscaler's decisions search a fine-grained (batch, sm,
 quota) configuration space: ``most_efficient_config`` alone enumerates

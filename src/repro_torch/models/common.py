@@ -11,6 +11,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -23,6 +24,8 @@ def dense_param(gen, shape, dtype, in_axis: int = 0):
     fan_in = shape[in_axis] if in_axis < len(shape) else shape[0]
     std = 1.0 / np.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if isinstance(t, FakeTensor):   # shape only (RaPP's graph extractor)
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)
 
@@ -85,11 +88,20 @@ def _freqs_on(head_dim: int, theta: float, device: torch.device):
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
+def _freqs_for(x, head_dim: int, theta: float):
+    """The rotary frequencies on ``x``'s device: cached for real tensors,
+    made anew for a fake or meta one (a shape-only trace), which must
+    never be cached nor be handed a cached tensor."""
+    if x.is_meta or isinstance(x, FakeTensor):
+        return torch.from_numpy(rope_freqs(head_dim, theta)).to(x.device)
+    return _freqs_on(head_dim, theta, x.device)
+
+
 def apply_rope(x, positions, theta: float):
     """Split-half rotary embedding in f32. x: (..., seq, heads, head_dim);
     positions: (..., seq)."""
     hd = x.shape[-1]
-    freqs = _freqs_on(hd, float(theta), x.device)                # (hd/2,)
+    freqs = _freqs_for(x, hd, float(theta))                      # (hd/2,)
     angles = positions[..., :, None].float() * freqs            # (..., S, hd/2)
     cos = torch.cos(angles)[..., :, None, :]                    # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., :, None, :]

@@ -32,7 +32,8 @@ COPIED = ["core/slo.py", "core/kalman.py", "core/modelstate.py",
           "core/autoscaler.py", "core/baselines.py", "core/events.py",
           "core/simulator.py", "core/multisim.py", "workloads/__init__.py",
           "workloads/generators.py", "workloads/azure.py",
-          "workloads/scenarios.py"]
+          "workloads/scenarios.py", "core/rapp/dataset.py",
+          "configs/shapes.py"]
 
 # the JAX package's comments name the change that introduced a line; the
 # port's copies leave those tags out, and nothing else

@@ -1,17 +1,28 @@
-"""The port's twins of ``examples/serve_autoscale.py`` and
-``examples/train_small.py``.
+"""The port's twins of ``examples/serve_autoscale.py``,
+``examples/train_small.py``, ``examples/quickstart.py`` and
+``examples/rapp_train.py``.
 
 Part 2 (the simulated platform comparison) must give the JAX example's
 numbers exactly: its loop is rebuilt here on the JAX package. Part 1
 (live serving with a vertical scale-up) runs on the CPU at the reduced
 width, where the kernel wrappers run their plain versions. The
-train_small twin takes three steps on the CPU. No assertion depends on
-CPU timing.
+train_small twin takes three steps on the CPU. The quickstart twin prints
+the JAX example's lines; the rapp_train twin trains 60 steps on a small
+corpus on the CPU, then drives the autoscaler with what it learned. No
+assertion depends on CPU timing.
 """
+import os
+import re
+import subprocess
+import sys
+
 import numpy as np
+import pytest
 import torch
 
-from repro_torch.examples import serve_autoscale, train_small
+from repro_torch.configs import ARCHS
+from repro_torch.core.rapp import dataset as D
+from repro_torch.examples import rapp_train, serve_autoscale, train_small
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 
@@ -104,3 +115,60 @@ def test_train_small_on_cpu(tmp_path, capsys, monkeypatch):
     assert losses[-1] < losses[0]
     with np.load(ckpt) as z:
         assert z["params/stack/periods/0/attn/wq"].shape == (8, 768, 768)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_quickstart_prints_the_jax_examples_lines():
+    """Each example in a fresh interpreter, as a user runs it (pod ids
+    count from 0 in a new process)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    runs = [subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=300)
+            for cmd in ([sys.executable, "-m",
+                         "repro_torch.examples.quickstart"],
+                        [sys.executable, "examples/quickstart.py"])]
+    for r in runs:
+        assert r.returncode == 0, r.stderr
+    got, want = runs[0].stdout, runs[1].stdout
+    assert got == want
+    assert "invariants ok: True" in got and "vertical scale-up" in got
+
+
+@pytest.fixture(scope="module")
+def rapp_splits():
+    ds = D.generate([ARCHS["olmo-1b"], ARCHS["qwen2.5-3b"]], batches=(1, 8),
+                    samples_per_graph=12, seed=1)
+    return D.split(ds, holdout_archs=("qwen2.5-3b",))
+
+
+def test_rapp_train_twin_on_cpu(rapp_splits, capsys):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)      # the suite runs in several processes
+    try:
+        run = rapp_train.run("cpu", steps=60, splits=rapp_splits)
+    finally:
+        torch.set_num_threads(threads)
+    assert np.isfinite(run.val_mape) and np.isfinite(run.test_mape)
+    assert run.recon.invariant_ok()
+    assert [r for r, _, _ in run.steps] == list(rapp_train.RATES)
+    assert all(pods for _, pods, _ in run.steps)
+    assert run.rapp.device == torch.device("cpu")
+    out = capsys.readouterr().out
+    assert "RaPP-driven autoscaling complete; invariants: True" in out
+    assert out.count("RaPP  val MAPE=") == 1
+
+
+def test_rapp_train_twin_keeps_the_examples_settings():
+    """The corpus, batches, samples, split, steps and rates of the JAX
+    package's ``examples/rapp_train.py``."""
+    src = open(os.path.join(ROOT, "examples", "rapp_train.py")).read()
+    names = re.search(r"ARCHS\[a\] for a in \(([^)]*)\)", src).group(1)
+    assert tuple(re.findall(r'"([^"]+)"', names)) == rapp_train.CORPUS
+    assert f"batches={rapp_train.BATCHES}" in src
+    assert f"samples_per_graph={rapp_train.SAMPLES_PER_GRAPH}" in src
+    assert f'holdout_archs=("{rapp_train.HOLDOUT[0]}",)' in src
+    assert "seed=0" in src and f"steps={rapp_train.STEPS}" in src
+    assert str(list(rapp_train.RATES)) in src

@@ -721,3 +721,78 @@ def test_remat_lowers_peak_memory_on_card(cuda):
         assert np.isfinite(float(m["loss"]))
         del state, m
     assert peak[True] < peak[False]
+
+
+# ------------------------------------------------------------ RaPP
+def _rapp_samples(n=24, seed=0):
+    """``n`` tensorized samples of full-width olmo-1b and qwen2.5-3b
+    graphs at batches 1 and 8 (the port's extractor, shapes only), with
+    log-ms labels: the reference's test corpus."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.rapp import dataset as D
+    ds = D.generate([ARCHS["olmo-1b"], ARCHS["qwen2.5-3b"]],
+                    batches=(1, 8), samples_per_graph=n // 4, seed=seed)
+    return ds, np.arange(len(ds))
+
+
+@pytest.mark.gpu
+def test_rapp_forward_and_train_step_on_card_match_host(cuda):
+    """The same params and batch: ``forward_batch`` on the card within
+    rel 1e-5 of the host's (TF32 off), and one train step's loss within
+    rel 1e-5, each gradient leaf within 1e-4 of its max."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.rapp import predictor as P, train as T
+    ds, idx = _rapp_samples()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params = P.init_params(0, device=dev)
+        batch = T._batch_of(ds, idx, dev)
+        labels = torch.from_numpy(ds.labels_logms).to(dev)
+        with torch.no_grad():
+            logl = P.forward_batch(params, *(batch[k] for k in (
+                "node_feats", "adj", "mask", "global", "prior")))
+        loss, grads = T.loss_and_grads(params, batch, labels)
+        out.append((logl.cpu(), float(loss),
+                    [g.cpu() for g in pytree.tree_leaves(grads)]))
+    (lc, loss_c, gc), (lh, loss_h, gh) = out
+    assert rel_err(lc, lh) <= 1e-5
+    assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_rapp_lattice_on_card_matches_calls_and_host(cuda):
+    """``predict_lattice`` on the card over 8 SMs x 10 quotas: each point
+    within rel 1e-5 of a fresh model's per-point ``__call__`` on the card
+    and of the host model's lattice."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core import FnSpec
+    from repro_torch.core.rapp import predictor as P
+    spec = FnSpec(reduced(ARCHS["olmo-1b"]))
+    sms = tuple(range(1, 9))
+    quotas = tuple(round(0.1 * i, 1) for i in range(1, 11))
+    params = P.init_params(0, device="cpu")
+    card = P.RaPPModel(params, seed=7, device=cuda)
+    lat = card.predict_lattice(spec, 4, sms, quotas)
+    fresh = P.RaPPModel(params, seed=7, device=cuda)
+    calls = np.array([[fresh(spec, 4, sm, q) for q in quotas] for sm in sms])
+    host = P.RaPPModel(params, seed=7, device="cpu").predict_lattice(
+        spec, 4, sms, quotas)
+    assert lat.shape == (8, 10) and np.isfinite(lat).all()
+    assert np.abs(lat - calls).max() <= 1e-5 * np.abs(calls).max()
+    assert np.abs(lat - host).max() <= 1e-5 * np.abs(host).max()
+
+
+@pytest.mark.gpu
+def test_rapp_trains_on_card(cuda):
+    """The reference's ``test_rapp_learns_better_than_random`` on the
+    card: 200 steps, train MAPE < 40%."""
+    from repro_torch.core.rapp import dataset as D, train as T
+    ds, _ = _rapp_samples(n=40, seed=1)
+    tr, va, _ = D.split(ds, holdout_archs=())
+    params = T.train(tr, va, cfg=T.TrainConfig(steps=200), verbose=False,
+                     device=cuda)
+    from torch.utils import _pytree as pytree
+    assert all(t.device.type == cuda.type for t in pytree.tree_leaves(params))
+    assert T.evaluate(params, tr) < 40.0

@@ -1,0 +1,212 @@
+"""RaPP's training in the port against the JAX package's (the twin of
+``test_rapp_learns_better_than_random`` is ``test_torch_rapp_learn.py``,
+that of ``examples/rapp_train.py`` in ``test_torch_examples.py``). The
+datasets are made by the port from its own extractor; both packages
+train on the same arrays, from the same (bridged) initial params.
+
+Tolerances (float32):
+* one train step: the loss within rel 1e-5, each gradient leaf within
+  1e-4 of its max. The first AdamW update of a component is
+  ``lr * g / (|g| + eps)`` (times the shared clip scale), and for two
+  gradients a and b ``|a/(|a|+e) - b/(|b|+e)| <= 2 |a - b| / (|b| + e)``:
+  each component of the update is held within
+  ``lr * (2 * d / (|g_jax| + eps) + 1e-5)``, ``d`` its leaf's gradient
+  tolerance. Tight where the gradient stands above its rounding noise,
+  loose only where its sign is noise.
+* sixty steps of ``train`` at its default lr: every loss within rel
+  1e-4; the final params component by component, where the gradient
+  stood above rounding through the run: a component whose RMS gradient
+  (the square root of the reference's Adam second moment) is at least
+  1e-2 of its leaf's largest, 100 x the one-step gradient tolerance,
+  ends within 1e-3 of its leaf's max. A component whose gradient is
+  rounding noise (a hidden unit of the global MLP that GELU has switched
+  off) takes Adam steps of up to ~lr in a direction the two packages'
+  summation orders pick differently, so it is held through the
+  predictions instead: the best params' predictions on the validation
+  set within rel 1e-3, and ``evaluate``'s MAPE within 0.05 points.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils import _pytree as pytree
+
+from repro.core.rapp import predictor as JP, train as JT
+from repro.training import optimizer as JO
+
+from repro_torch.configs import ARCHS
+from repro_torch.core.rapp import dataset as D, predictor as P, train as T
+from repro_torch.training import optimizer as opt_mod
+
+CPU = "cpu"
+ARGS = ("node_feats", "adj", "mask", "global", "prior")
+
+
+def by_path(tree, prefix=()):
+    """{path: numpy array} of a nested dict/list tree of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in tree:
+            out.update(by_path(tree[k], prefix + (k,)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(by_path(v, prefix + (i,)))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().numpy()}
+    return {prefix: np.asarray(tree)}
+
+
+def leaf_err(got, want):
+    """max over leaves of max |got - want| / max |want|."""
+    got, want = by_path(got), by_path(want)
+    assert got.keys() == want.keys()
+    return max(float(np.abs(got[k] - want[k]).max()
+                     / (np.abs(want[k]).max() + 1e-30)) for k in want)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread a test: the suite runs in several processes at
+    once, and torch's default of a thread a core makes them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def splits():
+    """24 samples (19 to train on): small, so sixty CPU steps fit the
+    suite's time."""
+    ds = D.generate([ARCHS["olmo-1b"], ARCHS["qwen2.5-3b"]], batches=(1, 8),
+                    samples_per_graph=6, seed=1)
+    return D.split(ds, holdout_archs=())
+
+
+def batch_np(ds, idx):
+    return {"node_feats": ds.node_feats[idx], "adj": ds.adj[idx],
+            "mask": ds.mask[idx], "global": ds.global_feats[idx],
+            "prior": ds.priors[idx]}
+
+
+def jax_loss(p, batch, labels):
+    logl = JP.forward_batch(p, *(batch[k] for k in ARGS))
+    return jnp.mean((logl - labels) ** 2)
+
+
+def adamw_pair(steps):
+    """``train``'s AdamW settings, in each package."""
+    kw = dict(lr=T.TrainConfig.lr, warmup_steps=50, total_steps=steps,
+              weight_decay=0.01)
+    return JO.AdamWConfig(**kw), opt_mod.AdamWConfig(**kw)
+
+
+jax_grad = jax.jit(jax.value_and_grad(jax_loss))
+
+
+def test_one_train_step_matches(splits, one_thread):
+    tr, _, _ = splits
+    idx = np.random.default_rng(0).choice(len(tr), size=16, replace=False)
+    b = batch_np(tr, idx)
+    labels = tr.labels_logms[idx]
+    jp = JP.init_params(jax.random.PRNGKey(0))
+    tp = P.params_from_jax(jp, CPU)
+    j_adamw, t_adamw = adamw_pair(100)
+
+    j_loss, j_grads = jax_grad(jp, b, labels)
+    t_batch = {k: torch.from_numpy(v) for k, v in b.items()}
+    t_loss, t_grads = T.loss_and_grads(tp, t_batch, torch.from_numpy(labels))
+    assert float(t_loss) == pytest.approx(float(j_loss), rel=1e-5)
+    assert leaf_err(t_grads, j_grads) <= 1e-4
+
+    j_new, _, _ = JO.apply_updates(j_adamw, jp, j_grads,
+                                   JO.init_opt_state(jp))
+    t_new, _, loss = T.make_step(t_adamw)(
+        tp, opt_mod.init_opt_state(tp), t_batch, torch.from_numpy(labels))
+    assert float(loss) == pytest.approx(float(j_loss), rel=1e-5)
+    # the update itself, new - old, held component by component
+    gnorm = float(JO.global_norm(j_grads))
+    scale = min(1.0, j_adamw.grad_clip / (gnorm + 1e-9))
+    lr1 = float(JO.schedule(j_adamw, jnp.ones((), jnp.int32)))
+    upd_t = by_path(pytree.tree_map(lambda a, b: a - b, t_new, tp))
+    upd_j = by_path(jax.tree.map(lambda a, b: a - b, j_new, jp))
+    g_j = by_path(j_grads)
+    for k, gj in g_j.items():
+        d = 1e-4 * np.abs(gj).max() * scale
+        bound = lr1 * (2 * d / (np.abs(gj) * scale + j_adamw.eps) + 1e-5)
+        assert (np.abs(upd_t[k] - upd_j[k]) <= bound).all(), k
+
+
+def test_sixty_steps_match(splits, one_thread, monkeypatch):
+    tr, va, _ = splits
+    steps = 60
+    j_adamw, _ = adamw_pair(steps)
+
+    @jax.jit
+    def j_step(p, s, batch, labels):
+        loss, grads = jax.value_and_grad(jax_loss)(p, batch, labels)
+        p, s, _ = JO.apply_updates(j_adamw, p, grads, s)
+        return p, s, loss
+
+    # the reference's train loop, step by step, for its losses and final
+    # state: the same numpy draws from the seed
+    jp = JP.init_params(jax.random.PRNGKey(0))
+    tp = P.params_from_jax(jp, CPU)
+    js, j_params, j_losses = JO.init_opt_state(jp), jp, []
+    rng = np.random.default_rng(0)
+    for _ in range(steps):
+        idx = rng.choice(len(tr), size=min(64, len(tr)), replace=False)
+        j_params, js, loss = j_step(j_params, js, batch_np(tr, idx),
+                                    tr.labels_logms[idx])
+        j_losses.append(float(loss))
+
+    # the port's train from the bridged params, its steps' losses and
+    # last params recorded: both substituted from here, the loop left as
+    # it is
+    t_steps = []
+    monkeypatch.setattr(P, "init_params",
+                        lambda seed, cfg, device: P.params_from_jax(jp,
+                                                                    device))
+    make_step = T.make_step
+
+    def recording(adamw):
+        step = make_step(adamw)
+
+        def run(*args):
+            out = step(*args)
+            t_steps.append(out)
+            return out
+        return run
+    monkeypatch.setattr(T, "make_step", recording)
+    cfg = dict(steps=steps, log_every=1000)
+    want = JT.train(tr, va, cfg=JT.TrainConfig(**cfg), verbose=False)
+    got = T.train(tr, va, cfg=T.TrainConfig(**cfg), verbose=False,
+                  device=CPU)
+    assert len(t_steps) == steps
+    for (_, _, a), b in zip(t_steps, j_losses):
+        assert float(a) == pytest.approx(b, rel=1e-4)
+    g, w = by_path(t_steps[-1][0]), by_path(j_params)
+    rms = {k: np.sqrt(v) for k, v in by_path(js.nu).items()}
+    held = 0
+    for k in w:
+        sel = rms[k] >= 1e-2 * rms[k].max()
+        held += int(sel.sum())
+        assert (np.abs(g[k] - w[k])[sel]
+                <= 1e-3 * np.abs(w[k]).max()).all(), k
+    assert held >= 0.3 * sum(v.size for v in w.values())
+    vb = batch_np(va, np.arange(len(va)))
+    pred_j = JP.forward_batch(want, *(vb[k] for k in ARGS))
+    with torch.no_grad():
+        pred_t = P.forward_batch(got, *(torch.from_numpy(vb[k])
+                                        for k in ARGS))
+    assert float(np.abs(pred_t.numpy() - pred_j).max()
+                 / np.abs(pred_j).max()) <= 1e-3
+    for ds in (tr, va):
+        assert T.evaluate(got, ds) == pytest.approx(JT.evaluate(want, ds),
+                                                    abs=0.05)
+    # the best snapshot on the validation set: no worse than the start
+    assert T.evaluate(got, va) <= T.evaluate(tp, va)
