@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Thirteen phases; any failure raises and the exit code is non-zero.
+Fourteen phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
@@ -196,10 +196,39 @@ deepseek's 16 heads of 128 with one query head a KV head.
    ``CapacityTable(predictor=RaPPModel)`` fill of gemma-7b's six batches.
    Holds that no kernel launched during the phase.
 
+14. Launch: the launchers of ``repro_torch.launch``. (a) The serve
+   launcher at its defaults (``serve.serve``: full-width qwen2.5-3b,
+   random bf16 weights from ``--seed``, 16 requests of 8 tokens, 8 new
+   each, one pod of sm 4, quota 0.5, batch 4): checks 16 requests of 8
+   tokens, 4 prefills and 32 decode steps, and the launches (counts
+   reset just before and read just after: flash once a layer a prefill,
+   decode once a layer a step); prints p50 and p95 (not held); then
+   every flash launch of one prefill and every decode launch of one step
+   of the launcher's own engine against the plain versions on the same
+   inputs (bf16, <= 3e-2). (b) Three dry-run cases on the 1x1 host mesh
+   of the card (``LAUNCH_CASES``: qwen2.5-3b ``decode_32k`` at B 8 and
+   ``prefill_32k`` at B 1, olmo-1b ``train_4k`` at B 8; full width and
+   depth, the plain path), each planned on FakeTensors and then run for
+   real on the same shapes: the plan's FLOPs equal a ``FlopCounterMode``
+   count of the real step, its argument bytes equal the storages of the
+   real params, optimizer state and cache, and its peak is within 2x of
+   ``max_memory_allocated``; the roofline's dominant term against the
+   measured step is printed, not held. (c) On the card's host, in
+   subprocesses started together after (b), so that no wall of (a) or
+   (b) is taken on a loaded host: ``python -m repro_torch.launch.dryrun
+   --arch olmo-1b --shape decode_32k`` (both production meshes; the
+   reference's own test combo) and ``python -m repro_torch.launch.train
+   --arch olmo-1b --shape train_4k --dry-run --multi-pod``; each must
+   exit 0 and plan each mesh's FLOPs a device within its band
+   (``LAUNCH_MESH_RUNS``: from the reference's count to torch 2.11's plan;
+   olmo's decode on 16x16 exactly the reference's). Records go to
+   ``chiprun_out/launch/``.
+
 The line before the last is the kernels record as JSON (each kernel's
-launches summed over every served phase, the calibrate phase and part 1
-of the autoscale phase; the train and RaPP phases launch none); the last
-line is ``{"ok": true, "device": {...}}``.
+launches summed over every served phase, the calibrate phase, part 1
+of the autoscale phase and the launch phase's serve launcher; the train
+and RaPP phases launch none); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2347,6 +2376,286 @@ def phase_rapp(seed):
     print(f"[rapp] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# [launch]: the dry run's cases held against real steps on the card
+# (arch, shape, global batch cut to fit one 80 GB card)
+LAUNCH_CASES = (("qwen2.5-3b", "decode_32k", 8),
+                ("qwen2.5-3b", "prefill_32k", 1),
+                ("olmo-1b", "train_4k", 8))
+LAUNCH_PEAK_FACTOR = 2.0   # predicted peak within this factor either way
+# the production-mesh dry runs, subprocesses on the card's host started
+# together once the card's work is done: (module and flags, {mesh: the
+# band its FLOPs a device must fall in}). Each band starts at the
+# reference's count (``python -m repro.launch.dryrun`` on a CPU host, jax
+# 0.9.0, which torch 2.13's plan equals but for train_4k's 2.117x) and
+# ends at torch 2.11's plan of run AG (the card's host: its DTensor
+# cannot shard ``aten.index`` of a vocab-sharded table by ids sharded
+# over pod and data, nor flatten two sharded dims into a product's
+# batch), rounded up at its last printed digit. olmo-1b's decode on
+# 16x16 is planned alike by both torch versions: held exactly.
+LAUNCH_MESH_RUNS = (
+    (("repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape",
+      "decode_32k"),
+     {"16x16": (3324248064.0, 3324248064.0),
+      "2x16x16": (1662124032.0, 2.8645e9)}),
+    (("repro_torch.launch.train", "--arch", "olmo-1b", "--shape", "train_4k",
+      "--dry-run", "--multi-pod"),
+     {"2x16x16": (22156662538240.0, 1.0465e14)}),
+)
+
+
+def storage_bytes(tree):
+    """Bytes of the distinct storages under the tensors of ``tree``."""
+    import torch
+    from torch.utils import _pytree as pytree
+    seen = {}
+    for t in pytree.tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def real_inputs(case, cfg, seed):
+    """The case's arguments with random token ids (and frame or visual
+    embeddings) in place of its empty ones; params, optimizer state and
+    cache as ``build_case`` made them (random weights, zeros)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def fill(name, t):
+        if name == "tokens":
+            return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                 device=t.device, dtype=t.dtype)
+        return torch.randn(t.shape, generator=gen, device=t.device,
+                           dtype=t.dtype)
+    args = list(case.args)
+    if case.step_name == "decode_step":
+        args[1] = fill("tokens", args[1])
+    else:
+        args[-1] = {k: fill(k, v) for k, v in args[-1].items()}
+    return args
+
+
+def check_dry_run_on_card(arch, shape_name, batch, seed):
+    """One dry-run case on the 1x1 host mesh of the card against the same
+    step run for real: FLOPs equal (``FlopCounterMode`` over the real
+    step), argument bytes equal (the storages of params, optimizer state
+    and cache), the predicted peak within ``LAUNCH_PEAK_FACTOR`` of
+    ``max_memory_allocated``; the roofline's dominant term against the
+    measured step (reported). Returns the record."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun, specs, trace_analysis
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = ARCHS[arch]
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+    mesh = make_host_mesh("cuda")
+    opts = specs.call_opts(cfg, shape, mesh)
+    t = time.perf_counter()
+    case, an, _ = dryrun.analyze(cfg, shape, mesh, device="cuda", opts=opts)
+    plan_s = time.perf_counter() - t
+    arg_pred = specs.argument_bytes(case, mesh)
+    peak_pred = arg_pred + an.peak_bytes
+    terms = dryrun.roofline_terms(an, mesh)
+    bound_s = max(terms["compute_s"], terms["memory_s"],
+                  terms["collective_s"])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    real = specs.build_case(cfg, shape, mesh, opts=opts, device="cuda",
+                            microbatches=case.scan_trip_hints
+                            .get("microbatches"))
+    args = real_inputs(real, cfg, seed)
+    torch.cuda.synchronize()
+    arg_real = storage_bytes(args)
+    alloc = torch.cuda.memory_allocated() - base
+    formulas = trace_analysis.CUSTOM_FLOPS
+    with FlopCounterMode(display=False, custom_mapping=formulas) as counter:
+        out = real.fn(*args)
+    torch.cuda.synchronize()
+    flops_real = counter.get_total_flops()
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = real.fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    peak_real = torch.cuda.max_memory_allocated() - base
+    del out, args, real
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec = {"arch": arch, "shape": shape_name, "batch": batch,
+           "microbatches": case.scan_trip_hints.get("microbatches", 1),
+           "plan_s": plan_s, "flops_pred": an.flops, "flops_real": flops_real,
+           "arg_pred": arg_pred, "arg_real": arg_real, "arg_alloc": alloc,
+           "peak_pred": peak_pred, "peak_real": peak_real,
+           "dominant": terms["dominant"], "bound_s": bound_s,
+           "step_s": step_s, "hbm_bytes_pred": an.hbm_bytes}
+    ratio = peak_pred / max(peak_real, 1)
+    print(f"[launch] dry run vs card, {arch} x {shape_name} at B {batch} "
+          f"(M {rec['microbatches']}; plan {plan_s:.1f} s): FLOPs "
+          f"{an.flops:.6e} predicted, {flops_real:.6e} counted; argument "
+          f"bytes {arg_pred} predicted, {arg_real} in the storages "
+          f"({alloc} allocated); peak {peak_pred / 2**30:.3f} GiB predicted, "
+          f"{peak_real / 2**30:.3f} GiB max_memory_allocated (x{ratio:.3f}); "
+          f"step {step_s * 1e3:.2f} ms vs the roofline's {terms['dominant']} "
+          f"{bound_s * 1e3:.2f} ms (x{step_s / bound_s:.2f}, reported)")
+    if flops_real != an.flops or arg_real != arg_pred:
+        raise AssertionError(f"[launch] {arch} x {shape_name}: FLOPs "
+                             f"{an.flops} vs {flops_real}, argument bytes "
+                             f"{arg_pred} vs {arg_real}")
+    if not 1 / LAUNCH_PEAK_FACTOR <= ratio <= LAUNCH_PEAK_FACTOR:
+        raise AssertionError(f"[launch] {arch} x {shape_name}: predicted "
+                             f"peak {peak_pred} vs {peak_real}")
+    return rec
+
+
+def check_mesh_runs(out_dir):
+    """``LAUNCH_MESH_RUNS``, all started at once on the host's cores with
+    the card hidden, each writing to its own log (a pipe left unread
+    would stall it); each must exit 0 (the dry run with its pass line)
+    and plan each mesh's FLOPs a device within its band. Every process
+    is killed if one fails or the wait raises."""
+    import re
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    try:
+        for i, (cmd, _) in enumerate(LAUNCH_MESH_RUNS):
+            log = open(os.path.join(out_dir, f"mesh_run_{i}.log"), "w+")
+            extra = (["--out", os.path.join(out_dir, "dryrun")]
+                     if cmd[0].endswith("dryrun") else [])
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", *cmd, *extra], env=env, cwd=ROOT,
+                stdout=log, stderr=subprocess.STDOUT, text=True), log))
+        t0 = time.perf_counter()
+        for (cmd, bands), (proc, log) in zip(LAUNCH_MESH_RUNS, procs):
+            proc.wait(timeout=600)
+            log.seek(0)
+            text = log.read()
+            plans = {}
+            for ln in text.splitlines():
+                m = re.match(r"\[(\S+)\] .*flops/dev (\S+) ", ln)
+                if m:
+                    plans[m.group(1)] = float(m.group(2))
+                    print(f"[launch] python -m {cmd[0]}: {ln}")
+            print(f"[launch] python -m {' '.join(cmd)}: exit "
+                  f"{proc.returncode} after {time.perf_counter() - t0:.1f} s")
+            if proc.returncode != 0 or (cmd[0].endswith("dryrun") and
+                                        "ALL DRY-RUN COMBOS PASSED" not in text):
+                print(text[-4000:], file=sys.stderr)
+                raise AssertionError(f"[launch] {' '.join(cmd)}: exit "
+                                     f"{proc.returncode}")
+            for mesh, (lo, hi) in bands.items():
+                flops = plans.get(mesh)
+                rec = os.path.join(out_dir, "dryrun",
+                                   f"{cmd[2]}__{cmd[4]}__{mesh}.json")
+                if cmd[0].endswith("dryrun"):   # its record: all digits
+                    with open(rec) as f:
+                        flops = json.load(f)["hlo_analysis_per_device"][
+                            "flops"]
+                if flops is None:
+                    raise AssertionError(f"[launch] {' '.join(cmd)}: no "
+                                         f"plan on {mesh}")
+                print(f"[launch] {cmd[2]} x {cmd[4]} on {mesh}: {flops!r} "
+                      f"FLOPs a device, {flops / lo:.4f}x the reference's "
+                      f"{lo:.10g} (band {lo:.10g} .. {hi:.10g})")
+                if not lo <= flops <= hi:
+                    raise AssertionError(f"[launch] {cmd[2]} x {cmd[4]} on "
+                                         f"{mesh}: {flops} FLOPs a device, "
+                                         f"outside {lo} .. {hi}")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def phase_launch(seed):
+    """[launch]: the serve launcher at its defaults on the card, the dry
+    run's cases against real steps, and the production-mesh dry runs on
+    the card's host (see the module docstring). Returns the serve
+    launcher's kernel launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "launch")
+    os.makedirs(out_dir, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.launches = da.launches = 0
+    run = serve.serve("qwen2.5-3b", device="cuda", seed=seed,
+                      log=lambda m: print(f"[launch] {m}"))
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    cfg, engine = run.cfg, run.engine
+    n_pre = engine.libhas.launches // 9
+    want = {"flash_attention": cfg.num_layers * n_pre,
+            "decode_attention": cfg.num_layers * 8 * n_pre}
+    if (cfg != ARCHS["qwen2.5-3b"] or len(run.requests) != 16
+            or any(r.output is None or len(r.output) != 8
+                   or not ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
+                   for r in run.requests)
+            or engine.libhas.launches != 9 * n_pre or n_pre != 4
+            or launches != want):
+        raise AssertionError(f"[launch] serve: {len(run.requests)} requests, "
+                             f"{engine.libhas.launches} dispatches, launches "
+                             f"{launches}, want {want}")
+    lats = run.latencies()
+    print(f"[launch] serve launcher: full-width {cfg.name} ({cfg.num_layers} "
+          f"layers, {cfg.dtype}), 16 requests of 8 tokens, 8 new each, pod sm "
+          f"4 quota 0.5 batch 4: {n_pre} prefills and {8 * n_pre} decode "
+          f"steps in {run.wall_s:.3f} s; p50 {lats[len(lats) // 2] * 1e3:.2f} "
+          f"ms, p95 {lats[int(len(lats) * 0.95) - 1] * 1e3:.2f} ms (printed, "
+          f"not held); launches {launches}")
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(4, 8)),
+                           device=engine.device)
+    with holding([(fa, "flash_attention", ref.flash_attention_ref),
+                  (da, "decode_attention", ref.decode_attention_ref)]) as seen:
+        logits, cache = engine._prefill(engine.params, {"tokens": toks})
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        engine._decode(engine.params, tok, 8, cache)
+    torch.cuda.synchronize()
+    for name, runs in seen.items():
+        worst = max(e for _, e in runs) if runs else float("nan")
+        print(f"[launch] the launcher's engine, one {name} step: {len(runs)} "
+              f"launches at {sorted({s for s, _ in runs})}, kernel vs plain "
+              f"on the same inputs, {cfg.dtype}: max rel err {worst:.3g} "
+              f"(tol {SERVE_TOL})")
+        if len(runs) != cfg.num_layers or not worst <= SERVE_TOL:
+            raise AssertionError(f"[launch] {name}: {len(runs)} launches, "
+                                 f"rel err {worst}")
+    del run, engine, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    records = [check_dry_run_on_card(a, s, b, seed)
+               for a, s, b in LAUNCH_CASES]
+    with open(os.path.join(out_dir, "card_cases.json"), "w") as f:
+        json.dump(records, f, indent=1)
+
+    check_mesh_runs(out_dir)
+    print(f"[launch] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def device_busy_ms(fn, launches=1, attempts=3):
     """(sum of CUDA kernel time in ms for one call of ``fn`` under
     torch.profiler, the eight kernels that took most, the eight PyTorch
@@ -2420,6 +2729,8 @@ def main(argv=None):
         launches[kernel] += n
     phase_train(args.seed)
     phase_rapp(args.seed)
+    for kernel, n in phase_launch(args.seed).items():
+        launches[kernel] += n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "graph_ms")

@@ -29,9 +29,20 @@ def list_archs():
     return sorted(ARCHS)
 
 
+def combo_is_supported(arch: str, shape: str) -> bool:
+    """Whether (arch x shape) is a supported dry-run combination.
+
+    The only principled skip: whisper-medium x long_500k (a 500k-token
+    decoder transcript has no audio analogue)."""
+    if shape == "long_500k" and arch == "whisper-medium":
+        return False
+    return True
+
+
 __all__ = [
     "ArchConfig", "MoEConfig", "SSMConfig", "ShapeConfig", "reduced",
     "SHAPES", "get_shape", "ARCHS", "get_config", "list_archs",
+    "combo_is_supported",
     "GPUType", "GPU_TYPES", "DEFAULT_GPU_TYPE", "get_gpu_type",
     "fleet_from_names",
 ]

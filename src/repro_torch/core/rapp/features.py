@@ -95,6 +95,8 @@ _PRIM = {
     "scalar_tensor": "broadcast_in_dim", "new_zeros": "broadcast_in_dim",
     "clone": "copy", "copy_": "copy",
 }
+# the batched products (an einsum over a stack of experts)
+_BATCHED = {"bmm", "baddbmm"}
 # metadata-only ops the schema does not mark as views (``reshape`` of a
 # fresh product)
 _METADATA = {"_unsafe_view"}
@@ -184,6 +186,8 @@ class _Recorder(TorchDispatchMode):
         self._keep = []      # every traced tensor, so no id is reused
         self._region = None  # (outer producer map, outer trips, first node)
         self._region_in = set()
+        self._casts = {}     # cast node -> (bytes it read, bytes it wrote)
+        self._uses = {}      # cast node -> the nodes that read its output
 
     def _key(self, t) -> int:
         return self.alias.get(id(t), id(t))
@@ -246,9 +250,51 @@ class _Recorder(TorchDispatchMode):
             edge = self._edge_into(t, idx)
             if edge is not None:
                 self.edges.append(edge)
+                if edge[0] in self._casts:
+                    self._uses.setdefault(edge[0], []).append(
+                        (idx, edge[1] == idx and name in _BATCHED))
+        if (prim == "convert_element_type" and len(ins) == len(outs) == 1
+                and self._is_weight(ins[0])):
+            self._casts[idx] = (_tensor_bytes(ins[0]) * self.trips,
+                                _tensor_bytes(outs[0]) * self.trips)
         for t in outs:
             self.producer[self._key(t)] = idx
         return out
+
+    def _is_weight(self, t) -> bool:
+        """Whether no node of the graph made ``t`` (a parameter)."""
+        key = self._key(t)
+        return key not in self.producer and (
+            self._region is None or key not in self._region[0])
+
+    def fold_casts(self):
+        """Fold each cast of a weight that only batched products read into
+        those products: ``kernels.ref.einsum`` widens a bf16 expert stack
+        to f32 before the grouped product, where the reference's
+        ``dot_general`` promotes it inside the product. The cast makes no
+        node and no write, and each product reads the weight at its dtype
+        before the cast; edges into the cast go to its products. (The
+        reference also promotes inside its attention and logits products,
+        whose operands the port widens first; those casts stay nodes.)"""
+        fold = {c for c, uses in self._uses.items()
+                if all(is_dot for _, is_dot in uses)}
+        if not fold:
+            return
+        into = {c: [i for i, _ in self._uses[c]] for c in fold}
+        for c in fold:
+            read, wrote = self._casts[c]
+            for i in into[c]:
+                self.nodes[i].bytes_in += read - wrote
+        edges = []
+        for a, b in self.edges:
+            if a in fold:
+                continue
+            edges.extend((a, i) for i in into[b]) if b in fold \
+                else edges.append((a, b))
+        keep = [i for i in range(len(self.nodes)) if i not in fold]
+        new = {old: n for n, old in enumerate(keep)}
+        self.nodes = [self.nodes[i] for i in keep]
+        self.edges = [(new[a], new[b]) for a, b in edges]
 
 
 class _Stack(list):
@@ -310,6 +356,7 @@ def extract_graph(cfg: ArchConfig, batch: int, seq: int = 128) -> OpGraph:
                                              dtype=torch.bfloat16)
         with rec:
             models.forward(params, cfg, b, CallOpts(attn_chunk=1 << 30))
+    rec.fold_casts()
     nodes, edges = rec.nodes, rec.edges
     counts = np.zeros(N_OP_CLASSES)
     for n in nodes:

@@ -1,17 +1,18 @@
-"""Training launcher: the run half of the JAX package's ``launch/train.py``.
+"""Training launcher: the counterpart of the JAX package's
+``launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --steps 100 [--batch 8 --seq 256 --lr 6e-4 --ckpt path.npz] \\
-      [--device cpu]
+      [--device cpu] [--dry-run [--multi-pod] --shape train_4k]
 
 On the card (the default) it trains the arch at full width with random
 weights; with ``--device cpu`` it takes ``reduced(cfg)``, as the
 reference does on a CPU backend. AdamW warms up over a tenth of the
 steps and decays over all of them; the data is ``SyntheticLMData(seed=1)``;
 the step is ``make_train_step(..., CallOpts(remat=True))``. ``--ckpt``
-writes the params in the JAX package's npz format. The reference's
-``--dry-run`` and ``--multi-pod`` (a lowering against the production mesh)
-wait for the port of ``launch/dryrun.py``.
+writes the params in the JAX package's npz format. ``--dry-run`` plans
+the ``--shape`` step on the production mesh instead (``dryrun.run_combo``:
+16x16, or 2x16x16 with ``--multi-pod``) and trains nothing.
 """
 from __future__ import annotations
 
@@ -95,12 +96,12 @@ def train(cfg, adamw: opt_mod.AdamWConfig, *, steps: int, batch: int,
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="--dry-run and --multi-pod of the JAX launcher wait for the "
-               "port of launch/dryrun.py")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--ckpt", default="")
@@ -108,6 +109,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    if args.dry_run:
+        from repro_torch.launch.dryrun import run_combo
+        return run_combo(args.arch, args.shape, multi_pod=args.multi_pod)
     cfg = get_config(args.arch)
     if resolve_device(args.device).type == "cpu":
         cfg = reduced(cfg)

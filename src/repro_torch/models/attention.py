@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import common
+from repro_torch.models import common, sharding
 
 NEG_INF = -2.0e38  # large-but-finite; avoids NaNs from (-inf) - (-inf)
 
@@ -71,6 +71,15 @@ def project_qkv(cfg, p, x):
     return q, k, v
 
 
+def _grouped(a, q, k, v):
+    """q (B,S,H,hd) and k/v (B,T,K,hd) as the attention cores take them:
+    q as (B,S,K,G,hd) (on a mesh, with G = 1 against K/V repeated to the
+    H heads: ``sharding.repeat_kv``)."""
+    B, S = q.shape[:2]
+    q, k, v, g = sharding.repeat_kv(q, k, v, a.q_groups)
+    return q.reshape(B, S, a.num_heads // g, g, a.head_dim), k, v
+
+
 # ------------------------------------------------------------------ core SDPA
 def _direct_attention(q, k, v, bias):
     """q: (B,S,K,G,hd); k,v: (B,T,K,hd); bias: broadcastable (B,1,1,S,T).
@@ -117,15 +126,25 @@ def _chunked_attention(q, k, v, q_pos, k_pos, causal, window, chunk):
 
 
 def self_attention(cfg, p, x, positions, *, causal=True, window=0,
-                   attn_chunk=2048, use_kernels=False, return_kv=False):
-    """Full-sequence self attention. x: (B,S,d) -> (B,S,d)."""
+                   attn_chunk=2048, use_kernels=False, return_kv=False,
+                   seq_shard=None):
+    """Full-sequence self attention. x: (B,S,d) -> (B,S,d).
+
+    seq_shard: optional (batch axes, model axes) for sharding the QUERY
+    sequence dim, with K/V replicated over it, as the reference's
+    constraint (a no-op on plain tensors)."""
     a = dims_of(cfg)
     B, S, _ = x.shape
     q, k, v = project_qkv(cfg, p, x)
     if cfg.pos_emb == "rope":
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(B, S, a.num_kv_heads, a.q_groups, a.head_dim)
+    if seq_shard is not None:
+        batch_ax, model_ax = seq_shard[0], seq_shard[1]
+        q = sharding.constrain(q, (batch_ax, model_ax, None, None))
+        k = sharding.constrain(k, (batch_ax, None, None, None))
+        v = sharding.constrain(v, (batch_ax, None, None, None))
+    qg, kg, vg = _grouped(a, q, k, v)
     if use_kernels:
         o = fa.flash_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window)
@@ -135,10 +154,10 @@ def self_attention(cfg, p, x, positions, *, causal=True, window=0,
             bias = common.causal_mask_bias(positions, positions,
                                            window if window else 0)
             bias = torch.clamp(bias, min=NEG_INF)[None, None, None]
-        o = _direct_attention(qg, k, v, bias).to(x.dtype)
+        o = sharding.on_shards(_direct_attention, qg, kg, vg, bias).to(x.dtype)
     else:
-        o = _chunked_attention(qg, k, v, positions, positions, causal,
-                               window, attn_chunk)
+        o = sharding.on_shards(_chunked_attention, qg, kg, vg, positions,
+                               positions, causal, window, attn_chunk)
     o = o.reshape(B, S, a.num_heads * a.head_dim)
     out = o @ p["wo"]
     if return_kv:
@@ -196,7 +215,6 @@ def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
     slot = pos % T
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    qg = q.reshape(B, 1, a.num_kv_heads, a.q_groups, a.head_dim)
     if pos >= T:
         valid = torch.ones((T,), dtype=torch.bool, device=x.device)
     else:
@@ -204,11 +222,12 @@ def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
     # quantized caches (e.g. fp8) are converted after the read
     kr = cache_k if cache_k.dtype == x.dtype else cache_k.to(x.dtype)
     vr = cache_v if cache_v.dtype == x.dtype else cache_v.to(x.dtype)
+    qg, kr, vr = _grouped(a, q, kr, vr)
     if use_kernels:
         o = da.decode_attention(qg.contiguous(), kr, vr, valid)
     else:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         bias = torch.where(valid, zero, NEG_INF)[None, None, None, None, :]
-        o = _direct_attention(qg, kr, vr, bias).to(x.dtype)
+        o = sharding.on_shards(_direct_attention, qg, kr, vr, bias).to(x.dtype)
     o = o.reshape(B, 1, a.num_heads * a.head_dim)
     return o @ p["wo"], cache_k, cache_v

@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, common, ffn as ffn_mod, ssm as ssm_mod
+from repro_torch.models import (attention, common, ffn as ffn_mod, sharding,
+                                ssm as ssm_mod)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,12 +24,15 @@ class CallOpts:
     """Runtime (non-architecture) options for a model call.
 
     The same fields and defaults as the JAX package's ``CallOpts``. The
-    sharding hints (``logits_spec``, ``act_spec``, ``attn_seq_shard``) have
-    no effect on one device and are carried for parity. ``remat``
-    checkpoints each block of a full-sequence pass without a cache (the
-    train step's): ``torch.utils.checkpoint`` keeps the block's input and
-    recomputes the rest in the backward, as ``jax.checkpoint`` on the
-    reference's scanned period body. Prefill and decode never remat."""
+    sharding hints (``logits_spec``, ``act_spec``, ``attn_seq_shard``)
+    redistribute a DTensor where the reference constrains its sharding
+    (``sharding.constrain``) and leave a plain tensor alone. ``remat``
+    checkpoints each block of the stacked periods in a full-sequence pass
+    without a cache (the train step's): ``torch.utils.checkpoint`` keeps
+    the block's input and recomputes the rest in the backward, as
+    ``jax.checkpoint`` on the reference's scanned period body; the
+    unrolled prefix (deepseek's dense first layer) is not checkpointed,
+    as the reference's is not. Prefill and decode never remat."""
     use_kernels: bool = False
     attn_chunk: int = 4096
     capacity_factor: float = 1.25
@@ -135,6 +139,7 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
                      kv_len: Optional[int] = None):
     """Full-sequence block. Returns (h, aux_loss, cache_entry_or_None)."""
     mixer, f, _ = kind
+    p = sharding.gather_fsdp(p)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache_entry = None
     hn = common.apply_norm(cfg, p["ln1"], h)
@@ -142,7 +147,7 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
         o = attention.self_attention(
             cfg, p["attn"], hn, positions, window=opts.window,
             attn_chunk=opts.attn_chunk, use_kernels=opts.use_kernels,
-            return_kv=kv_len is not None)
+            return_kv=kv_len is not None, seq_shard=opts.attn_seq_shard)
         if kv_len is not None:
             o, (k, v) = o
             cache_entry = {"k": _kv_into_ring(k, kv_len),
@@ -164,7 +169,7 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
                                  capacity_factor=opts.capacity_factor,
                                  use_kernels=opts.use_kernels)
         h = h + y
-    return h, aux, cache_entry
+    return sharding.constrain(h, opts.act_spec), aux, cache_entry
 
 
 def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
@@ -172,6 +177,7 @@ def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
     is updated in place, an SSM entry is replaced. ``pos`` is ignored by
     SSM blocks."""
     mixer, f, _ = kind
+    p = sharding.gather_fsdp(p)
     hn = common.apply_norm(cfg, p["ln1"], h)
     if mixer == "attn":
         o, nk, nv = attention.decode_self_attention(
@@ -194,18 +200,21 @@ def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
                                use_kernels=opts.use_kernels,
                                single_group=opts.moe_single_group_decode)
         h = h + y
-    return h, new_entry
+    return sharding.constrain(h, opts.act_spec), new_entry
 
 
 # ------------------------------------------------------------------ stack
 def apply_stack(cfg, layers, h, positions, opts: CallOpts,
                 kv_len: Optional[int] = None):
     """Full-sequence stack. Returns (h, aux_total, cache_or_None)."""
+    h = sharding.constrain(h, opts.act_spec)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = []
-    remat = opts.remat and kv_len is None
-    for kind, p in zip(layer_kinds(cfg), layers):
-        if remat:
+    # the reference checkpoints its scanned period body, not the prefix
+    remat_from = (len(stack_pattern(cfg)[0]) if opts.remat and kv_len is None
+                  else len(layers))
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), layers)):
+        if i >= remat_from:
             h, aux, ce = checkpoint(apply_block_full, cfg, kind, p, h,
                                     positions, opts, use_reentrant=False)
         else:

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch.models import sharding
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -50,7 +52,10 @@ def init_norm(cfg, d: int, device):
 
 def apply_norm(cfg, p, x, eps: float = 1e-5):
     """Norms run in f32 and cast back; the variance is the population
-    variance (``correction=0``), as ``jnp.var``."""
+    variance (``correction=0``), as ``jnp.var``. A DTensor holding partial
+    sums (a row-parallel product's output) is reduced first: a norm is
+    not linear in them."""
+    x = sharding.reduce_partial(x)
     dt = x.dtype
     x = x.float()
     if cfg.norm == "rmsnorm":
@@ -90,9 +95,11 @@ def _freqs_on(head_dim: int, theta: float, device: torch.device):
 
 def _freqs_for(x, head_dim: int, theta: float):
     """The rotary frequencies on ``x``'s device: cached for real tensors,
-    made anew for a fake or meta one (a shape-only trace), which must
-    never be cached nor be handed a cached tensor."""
-    if x.is_meta or isinstance(x, FakeTensor):
+    made anew for a fake or meta one or under a FakeTensorMode (a
+    shape-only trace, of DTensors too), which must never be cached nor be
+    handed a cached tensor."""
+    if (x.is_meta or isinstance(x, FakeTensor) or torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None):
         return torch.from_numpy(rope_freqs(head_dim, theta)).to(x.device)
     return _freqs_on(head_dim, theta, x.device)
 
@@ -121,3 +128,4 @@ def causal_mask_bias(q_pos, k_pos, window: int = 0):
         ok &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, float("-inf"))
+

@@ -24,7 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, ffn as ffn_mod, lm
+from repro_torch.models import attention, common, ffn as ffn_mod, lm, sharding
 from repro_torch.models.blocks import CallOpts, _kv_into_ring
 
 
@@ -70,6 +70,7 @@ def _rows(table, positions):
 
 def encode(params, cfg, frame_embeds, opts: CallOpts = CallOpts()):
     """frame_embeds: (B, T_enc, d) stubbed conv features -> (B, T_enc, d)."""
+    params = sharding.gather_fsdp(params, skip=("encoder", "decoder"))
     T = frame_embeds.shape[1]
     pos = torch.arange(T, dtype=torch.int32, device=frame_embeds.device)
     dt = common.dtype_of(cfg)
@@ -84,6 +85,7 @@ def encode(params, cfg, frame_embeds, opts: CallOpts = CallOpts()):
 
 
 def _encoder_layer(cfg, lp, h, pos, opts):
+    lp = sharding.gather_fsdp(lp)
     hn = common.apply_norm(cfg, lp["ln1"], h)
     h = h + attention.self_attention(cfg, lp["attn"], hn, pos, causal=False,
                                      attn_chunk=opts.attn_chunk,
@@ -102,16 +104,16 @@ def _stacked_kv(cfg, batch, T, dtype, device):
 
 def encode_cross_kv(params, cfg, enc_out):
     """Each decoder layer's cross K/V: (k, v), each (L, B, T_enc, K, hd)."""
-    B, T, _ = enc_out.shape
-    ck, cv = _stacked_kv(cfg, B, T, enc_out.dtype, enc_out.device)
-    for i, lp in enumerate(params["decoder"]):
-        ck[i], cv[i] = attention.encode_kv(cfg, lp["xattn"], enc_out)
-    return ck, cv
+    kv = [attention.encode_kv(cfg, sharding.gather_fsdp(lp["xattn"]), enc_out)
+          for lp in params["decoder"]]
+    return (torch.stack([k for k, _ in kv]),
+            torch.stack([v for _, v in kv]))
 
 
 def _decoder_layer_full(cfg, lp, h, pos, cross_kv, opts, kv_len):
     """One decoder layer over the whole sequence. Returns (h, (k, v)) of
     its self-attention, in a ring of ``kv_len`` slots, or (h, None)."""
+    lp = sharding.gather_fsdp(lp)
     hn = common.apply_norm(cfg, lp["ln1"], h)
     o = attention.self_attention(cfg, lp["attn"], hn, pos,
                                  attn_chunk=opts.attn_chunk,
@@ -142,6 +144,7 @@ def _logits(params, h):
 
 def forward(params, cfg, tokens, frame_embeds, opts: CallOpts = CallOpts()):
     """Teacher-forced full-sequence decoder logits: (logits, aux = 0)."""
+    params = sharding.gather_fsdp(params, skip=("encoder", "decoder"))
     ck, cv = encode_cross_kv(params, cfg, encode(params, cfg, frame_embeds,
                                                  opts))
     h, pos = _decoder_input(params, cfg, tokens)
@@ -160,13 +163,17 @@ def forward(params, cfg, tokens, frame_embeds, opts: CallOpts = CallOpts()):
 def prefill(params, cfg, tokens, frame_embeds, kv_len: int,
             opts: CallOpts = CallOpts()):
     """Encode the audio and prefill the decoder: (last logits, cache)."""
+    params = sharding.gather_fsdp(params, skip=("encoder", "decoder"))
     ck, cv = encode_cross_kv(params, cfg, encode(params, cfg, frame_embeds,
                                                  opts))
     h, pos = _decoder_input(params, cfg, tokens)
-    sk, sv = _stacked_kv(cfg, tokens.shape[0], kv_len, h.dtype, h.device)
+    rings = []
     for i, lp in enumerate(params["decoder"]):
-        h, (sk[i], sv[i]) = _decoder_layer_full(cfg, lp, h, pos,
-                                                (ck[i], cv[i]), opts, kv_len)
+        h, ring = _decoder_layer_full(cfg, lp, h, pos, (ck[i], cv[i]), opts,
+                                      kv_len)
+        rings.append(ring)
+    sk = torch.stack([k for k, _ in rings])
+    sv = torch.stack([v for _, v in rings])
     h = common.apply_norm(cfg, params["ln_dec"], h[:, -1:])
     return _logits(params, h), {"self": {"k": sk, "v": sv}, "cross": (ck, cv)}
 
@@ -176,11 +183,13 @@ def decode_step(params, cfg, tokens, pos: int, cache,
     """One decoder token. tokens: (B, 1); pos: absolute position (int),
     clamped to the learned table for the position row. Returns (logits
     (B,1,V), cache); the self-attention ring is updated in place."""
+    params = sharding.gather_fsdp(params, skip=("encoder", "decoder"))
     row = params["pos_dec"][min(int(pos), cfg.max_learned_pos - 1)]
     h = params["embed"][tokens.long()] + row.to(common.dtype_of(cfg))
     sk, sv = cache["self"]["k"], cache["self"]["v"]
     ck, cv = cache["cross"]
     for i, lp in enumerate(params["decoder"]):
+        lp = sharding.gather_fsdp(lp)
         hn = common.apply_norm(cfg, lp["ln1"], h)
         o, _, _ = attention.decode_self_attention(
             cfg, lp["attn"], hn, sk[i], sv[i], pos,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import moe_gmm, ref
-from repro_torch.models import common
+from repro_torch.models import common, sharding
 
 
 # ------------------------------------------------------------------ dense
@@ -105,6 +105,7 @@ def moe_ffn(cfg, p, x, *, capacity_factor: float = 1.25, use_kernels=False,
     # jax.nn.one_hot does (F.one_hot raises)
     slots = torch.arange(C, dtype=pos.dtype, device=x.device)
     dispatch = (pos[..., None] == slots).to(x.dtype) * keep[..., None]
+    dispatch = sharding.experts_like(dispatch, p["w_gate"])
     combine = dispatch.float() * weights[..., None]
 
     xe = ref.einsum("gtec,gtd->gecd", dispatch, x)  # (G,E,C,d)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, common
+from repro_torch.models import blocks, common, sharding
 from repro_torch.models.blocks import CallOpts
 
 
@@ -106,6 +106,7 @@ def _positions(tokens, visual_embeds):
 def forward(params, cfg, tokens, *, visual_embeds=None,
             opts: CallOpts = CallOpts()):
     """Full-sequence logits. tokens: (B, S_text); visual_embeds: (B, V, d)."""
+    params = sharding.gather_fsdp(params, skip=("layers",))
     positions = _positions(tokens, visual_embeds)
     h = _embed(cfg, params, tokens, positions, visual_embeds)
     h, aux, _ = blocks.apply_stack(cfg, params["layers"], h, positions, opts)
@@ -116,6 +117,7 @@ def forward(params, cfg, tokens, *, visual_embeds=None,
 def prefill(params, cfg, tokens, kv_len: int, *, visual_embeds=None,
             opts: CallOpts = CallOpts()):
     """Prefill: returns (last-token logits (B,1,V), cache)."""
+    params = sharding.gather_fsdp(params, skip=("layers",))
     positions = _positions(tokens, visual_embeds)
     h = _embed(cfg, params, tokens, positions, visual_embeds)
     h, _, cache = blocks.apply_stack(cfg, params["layers"], h, positions,
@@ -130,6 +132,7 @@ def decode_step(params, cfg, tokens, pos: int, cache, *,
 
     Returns (logits (B,1,V), cache); the cache is updated in place.
     """
+    params = sharding.gather_fsdp(params, skip=("layers",))
     h = params["embed"][tokens.long()]
     if cfg.name.startswith("gemma"):
         h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref, ssd_scan
-from repro_torch.models import common
+from repro_torch.models import common, sharding
 
 
 def ssm_dims(cfg):
@@ -72,7 +72,8 @@ def _causal_conv(cfg, p, xbc):
     W = cfg.ssm.conv_width
     pad = F.pad(xbc, (0, 0, W - 1, 0))
     w = p["conv_w"].to(xbc.dtype).t().contiguous()[:, None, :]  # (C, 1, W)
-    out = F.conv1d(pad.transpose(1, 2), w, groups=xbc.shape[-1])
+    out = sharding.depthwise(lambda a, b: F.conv1d(a, b, groups=a.shape[1]),
+                             pad.transpose(1, 2), w)
     out = out.transpose(1, 2) + p["conv_b"].to(xbc.dtype)
     return F.silu(out).contiguous()
 

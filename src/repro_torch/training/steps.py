@@ -11,7 +11,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import models
-from repro_torch.models import CallOpts
+from repro_torch.models import CallOpts, sharding
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.weights import jax_ndim
 
@@ -19,13 +19,10 @@ from repro_torch.weights import jax_ndim
 def cross_entropy(logits, labels, mask=None):
     """logits: (B,S,V) f32; labels: (B,S) int. Mean NLL over mask.
 
-    The gold logit is read with a gather: the reference's one-hot sum has
-    one nonzero term, so the two are equal. Its reason, vocab-sharded
-    logits under SPMD, does not arise on one card, and the one-hot would
-    cost a (B, S, V) f32 tensor."""
+    The gold logit comes from ``sharding.gold_logits``: a gather on one
+    device, the reference's one-hot sum on a mesh."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None],
-                                dim=-1)[..., 0]
+    gold = sharding.gold_logits(logits, labels)
     nll = logz - gold
     if mask is None:
         return nll.mean()
@@ -35,6 +32,7 @@ def cross_entropy(logits, labels, mask=None):
 
 def loss_fn(params, cfg, batch, opts: CallOpts):
     logits, aux = models.forward(params, cfg, batch, opts)
+    logits = sharding.constrain(logits, opts.logits_spec)
     tokens = batch["tokens"]
     # VLM: logits cover [visual | text]; next-token loss on the text span.
     v = cfg.num_visual_tokens or 0
@@ -57,8 +55,9 @@ def make_train_step(cfg, adamw: opt_mod.AdamWConfig,
     microbatch ``m``), with the gradients summed in f32 and averaged: the
     loss and gradients are the means of the whole batch's.
 
-    ``grad_specs`` (the reference's sharding constraints on the
-    gradients) has no effect on one device. ``opts.use_kernels`` is
+    ``grad_specs`` (a spec tree like params: the reference's sharding
+    constraints on each microbatch's gradients) redistributes DTensor
+    gradients and leaves plain ones alone. ``opts.use_kernels`` is
     refused: the kernels have no backward, as the reference's Pallas
     kernels define no VJP, and the reference trains on the plain path.
     """
@@ -68,12 +67,17 @@ def make_train_step(cfg, adamw: opt_mod.AdamWConfig,
     if microbatches < 1:
         raise ValueError(f"make_train_step: microbatches {microbatches}")
 
+    gspecs = (None if grad_specs is None else
+              pytree.tree_leaves(grad_specs, is_leaf=lambda s: s is None))
+
     def grad_one(flat, spec, batch):
         work = [p.detach().requires_grad_() for p in flat]
         with torch.enable_grad():
             loss, parts = loss_fn(pytree.tree_unflatten(work, spec), cfg,
                                   batch, opts)
             grads = torch.autograd.grad(loss, work)
+        if grad_specs is not None:
+            grads = [sharding.constrain(g, s) for g, s in zip(grads, gspecs)]
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 list(grads))
 
@@ -91,8 +95,7 @@ def make_train_step(cfg, adamw: opt_mod.AdamWConfig,
             mb = {k: x.reshape((x.shape[0] // M, M) + tuple(x.shape[1:]))
                   .transpose(0, 1) for k, x in batch.items()}
             dev = flat[0].device
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                    for p in flat]
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             psum = {"ce": lsum.clone(), "aux": lsum.clone()}
             for m in range(M):

@@ -796,3 +796,76 @@ def test_rapp_trains_on_card(cuda):
     from torch.utils import _pytree as pytree
     assert all(t.device.type == cuda.type for t in pytree.tree_leaves(params))
     assert T.evaluate(params, tr) < 40.0
+
+
+def _fill(case, cfg, device):
+    """The case's arguments with random token ids in place of its empty
+    ones (params random, optimizer state and cache zeros)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    args = list(case.args)
+
+    def tokens(t):
+        return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                             device=device, dtype=t.dtype)
+    if case.step_name == "decode_step":
+        args[1] = tokens(args[1])
+    else:
+        args[-1] = dict(args[-1], tokens=tokens(args[-1]["tokens"]))
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape,batch", [
+    ("qwen2.5-3b", "decode_32k", 2), ("olmo-1b", "train_4k", 2)])
+def test_dry_run_on_card_equals_the_real_step(cuda, arch, shape, batch):
+    """The 1x1 dry run of full-width ``arch`` cut to 2 layers (seq 512)
+    against the same step run on the card: FLOPs equal a
+    ``FlopCounterMode`` count of the real step, argument bytes equal the
+    storages of params, optimizer state and cache."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun, specs, trace_analysis
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = dataclasses.replace(ARCHS[arch], num_layers=2)
+    shp = dataclasses.replace(SHAPES[shape], seq_len=512)
+    mesh = make_host_mesh("cuda")
+    opts = specs.call_opts(cfg, shp, mesh)
+    case, an, _ = dryrun.analyze(cfg, shp, mesh, batch=batch, device="cuda",
+                                 opts=opts)
+    real = specs.build_case(cfg, shp, mesh, opts=opts, batch=batch,
+                            device="cuda", microbatches=case.scan_trip_hints
+                            .get("microbatches"))
+    args = _fill(real, cfg, cuda)
+    formulas = trace_analysis.CUSTOM_FLOPS
+    with FlopCounterMode(display=False, custom_mapping=formulas) as counter:
+        real.fn(*args)
+    torch.cuda.synchronize()
+    assert counter.get_total_flops() == an.flops > 0
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in pytree.tree_leaves(args)}
+    assert sum(storages.values()) == specs.argument_bytes(case, mesh)
+
+
+@pytest.mark.gpu
+def test_serve_launcher_on_card(cuda):
+    """``launch.serve`` on the card at full width cut to 2 layers: 4
+    requests, each batch's prefill launches flash and each decode step
+    decode attention once a layer."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(configs.ARCHS["qwen2.5-3b"], num_layers=2)
+    saved = configs.ARCHS["qwen2.5-3b"]
+    configs.ARCHS["qwen2.5-3b"] = cfg
+    try:
+        before = (tfa.launches, tda.launches)
+        run = serve.serve("qwen2.5-3b", requests=4, device="cuda",
+                          log=lambda m: None)
+        torch.cuda.synchronize()
+    finally:
+        configs.ARCHS["qwen2.5-3b"] = saved
+    assert run.cfg.num_layers == 2 and len(run.requests) == 4
+    assert all(len(r.output) == 8 for r in run.requests)
+    assert (tfa.launches - before[0], tda.launches - before[1]) == (2, 16)

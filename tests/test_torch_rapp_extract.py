@@ -158,3 +158,45 @@ def test_meta_tensor_rope_is_not_cached():
     out = common.apply_rope(x, pos, 12345.0)
     assert out.is_meta and out.shape == x.shape
     assert common._freqs_on.cache_info().currsize == n
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_total_bytes_in_reference_band(arch):
+    """At full width, seq 128, batches 1 and 16: ``total_bytes`` within
+    [0.5, 1.25] x the reference's and ``total_flops`` within rel 1e-2.
+    A bf16 expert stack widened to f32 for its grouped product is one
+    ``dot_general`` in the reference, which promotes inside the product;
+    the port folds the cast into the product (``_Recorder.fold_casts``),
+    or the MoE archs read up to 4.5x."""
+    for batch in (1, 16):
+        want = JF.extract_graph(JARCHS[arch], batch=batch, seq=128)
+        got = F.extract_graph(ARCHS[arch], batch=batch, seq=128)
+        ratio = got.total_bytes / want.total_bytes
+        print(f"{arch} batch {batch}: total_bytes x{ratio:.3f}, total_flops "
+              f"x{got.total_flops / want.total_flops:.5f}")
+        assert 0.5 <= ratio <= 1.25, (arch, batch, ratio)
+        assert got.total_flops == pytest.approx(want.total_flops, rel=1e-2)
+
+
+def test_weight_casts_fold_into_the_batched_products_that_read_them():
+    """``bmm(x, w.float())`` of a bf16 expert stack w is one dot node that
+    reads w's bf16 bytes; a cast of an activation, or of a weight that a
+    non-product also reads, stays a node."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rec = F._Recorder()
+    with FakeTensorMode():
+        x = torch.zeros((4, 8, 16))
+        w = torch.zeros((4, 16, 32), dtype=torch.bfloat16)
+        u = torch.zeros((4, 32, 16), dtype=torch.bfloat16)
+        with rec:
+            y = torch.bmm(x, w.float())          # folds
+            uf = u.float()                       # read by a multiply too
+            z = torch.bmm(y.bfloat16().float(), uf) + uf.sum()
+    rec.fold_casts()
+    assert [F.OP_CLASSES[n.op_class] for n in rec.nodes] == \
+        ["dot", "conv", "conv", "conv", "dot", "reduce", "elementwise"]
+    # the first product reads x in f32 and w in bf16
+    assert rec.nodes[0].bytes_in == 4 * 8 * 16 * 4 + 4 * 16 * 32 * 2
+    # u's cast (node 1) feeds the second product and the sum
+    assert sorted(rec.edges) == [(0, 2), (1, 4), (1, 5), (2, 3), (3, 4),
+                                 (4, 6), (5, 6)]

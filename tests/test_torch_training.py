@@ -336,9 +336,10 @@ def test_launch_train_on_cpu(tmp_path):
     help_ = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                             "--help"], capture_output=True, text=True,
                            env=env, timeout=120).stdout
-    assert "--dry-run" in help_ and "wait for the port" in help_
+    # the reference's dry-run flags (run in test_torch_launch_cli.py)
+    assert all(f in help_ for f in ("--dry-run", "--multi-pod", "--shape"))
     bad = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--dry-run"], capture_output=True, text=True,
+                          "--dry-runs"], capture_output=True, text=True,
                          env=env, timeout=120)
     assert bad.returncode == 2 and "unrecognized arguments" in bad.stderr
 
@@ -347,6 +348,7 @@ NEW_MODULES = sorted(
     [REPO / "src" / "repro_torch" / "training" / f for f in
      ("checkpoint.py", "data.py", "optimizer.py", "steps.py")]
     + list((REPO / "src" / "repro_torch" / "launch").glob("*.py"))
+    + [REPO / "src" / "repro_torch" / "models" / "sharding.py"]
     + [REPO / "src" / "repro_torch" / "examples" / "train_small.py"])
 
 
