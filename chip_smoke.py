@@ -217,11 +217,12 @@ deepseek's 16 heads of 128 with one query head a KV head.
    subprocesses started together after (b), so that no wall of (a) or
    (b) is taken on a loaded host: ``python -m repro_torch.launch.dryrun
    --arch olmo-1b --shape decode_32k`` (both production meshes; the
-   reference's own test combo) and ``python -m repro_torch.launch.train
-   --arch olmo-1b --shape train_4k --dry-run --multi-pod``; each must
-   exit 0 and plan each mesh's FLOPs a device within its band
-   (``LAUNCH_MESH_RUNS``: from the reference's count to torch 2.11's plan;
-   olmo's decode on 16x16 exactly the reference's). Records go to
+   reference's own test combo), ``python -m repro_torch.launch.train
+   --arch olmo-1b --shape train_4k --dry-run --multi-pod`` and ``python
+   -m repro_torch.launch.dryrun --arch llava-next-34b --shape
+   prefill_32k --single-pod-only``; each must exit 0 and plan each mesh's
+   FLOPs a device within its band (``LAUNCH_MESH_RUNS``: olmo's plans at
+   the reference's count, llava's within 1.10x of it). Records go to
    ``chiprun_out/launch/``.
 
 The line before the last is the kernels record as JSON (each kernel's
@@ -2386,20 +2387,24 @@ LAUNCH_PEAK_FACTOR = 2.0   # predicted peak within this factor either way
 # together once the card's work is done: (module and flags, {mesh: the
 # band its FLOPs a device must fall in}). Each band starts at the
 # reference's count (``python -m repro.launch.dryrun`` on a CPU host, jax
-# 0.9.0, which torch 2.13's plan equals but for train_4k's 2.117x) and
-# ends at torch 2.11's plan of run AG (the card's host: its DTensor
-# cannot shard ``aten.index`` of a vocab-sharded table by ids sharded
-# over pod and data, nor flatten two sharded dims into a product's
-# batch), rounded up at its last printed digit. olmo-1b's decode on
-# 16x16 is planned alike by both torch versions: held exactly.
+# 0.9.0), which torch 2.11 (the card's host) and 2.13 plan alike since
+# the hooks of ``models/sharding.py`` keep DTensor on the reference's
+# plans: the dry run's records are held to it exactly; the train
+# launcher prints four digits, so its band ends at the printed digit
+# rounded up. llava-next-34b's prefill (56 query heads on 16 devices,
+# its query sequence sharded) is held within 1.10x.
+LLAVA_PREFILL_FLOPS = 505088268697600.0   # the reference's, 16x16
 LAUNCH_MESH_RUNS = (
     (("repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape",
       "decode_32k"),
      {"16x16": (3324248064.0, 3324248064.0),
-      "2x16x16": (1662124032.0, 2.8645e9)}),
+      "2x16x16": (1662124032.0, 1662124032.0)}),
     (("repro_torch.launch.train", "--arch", "olmo-1b", "--shape", "train_4k",
       "--dry-run", "--multi-pod"),
-     {"2x16x16": (22156662538240.0, 1.0465e14)}),
+     {"2x16x16": (22156662538240.0, 2.2165e13)}),
+    (("repro_torch.launch.dryrun", "--arch", "llava-next-34b", "--shape",
+      "prefill_32k", "--single-pod-only"),
+     {"16x16": (LLAVA_PREFILL_FLOPS, 1.10 * LLAVA_PREFILL_FLOPS)}),
 )
 
 

@@ -103,12 +103,44 @@ def trace_case(case, mesh):
     return tracer.analysis, sum(map(trace_analysis._nbytes, local))
 
 
+# a train step of more microbatches is traced at these two counts (the
+# first with the accumulation a single microbatch skips) and extrapolated
+MICRO_CUTS = (2, 3)
+
+
+def _micro_cuts(micro):
+    """The microbatch counts to trace a step of ``micro`` at: itself, or
+    ``MICRO_CUTS`` where those trace fewer microbatches in all."""
+    if micro is None or micro <= sum(MICRO_CUTS):
+        return (micro,)
+    return MICRO_CUTS
+
+
+def _over_microbatches(traced, micro):
+    """(Analysis, output bytes) of a step of ``micro`` microbatches from
+    its traces at ``_micro_cuts(micro)``: the loop's microbatches each
+    cost what the third adds to the second, as the reference multiplies
+    a scan body by its trips. The peak is the deeper trace's: the loop
+    frees each microbatch's tensors before the next."""
+    if len(traced) == 1:
+        return traced[0]
+    (a2, _), (a3, o3) = traced
+    step = a3.scaled(1)
+    step.add(a2.scaled(-1))
+    total = a3.scaled(1)
+    total.add(step.scaled(micro - MICRO_CUTS[1]))
+    total.peak_bytes = a3.peak_bytes
+    return total, o3
+
+
 def analyze(cfg, shape, mesh, *, batch=None, device="cpu",
             microbatches=None, opts=None):
     """The per-device plan of ``cfg`` x ``shape`` on ``mesh``: (Case at
     full depth, Analysis, output bytes a device). ``batch`` cuts the
     shape's global batch. Traces each layer stack at k and k + 1 periods
-    and extrapolates (``_depths``)."""
+    and extrapolates (``_depths``), and a train step of many microbatches
+    at two counts of them (``_micro_cuts``), each of the same rows a
+    device."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     if batch is not None:
         shape = dataclasses.replace(shape, global_batch=batch)
@@ -119,9 +151,14 @@ def analyze(cfg, shape, mesh, *, batch=None, device="cpu",
         micro = full.scan_trip_hints.get("microbatches")
         runs = []
         for c, extra in _depths(cfg):
-            case = specs_mod.build_case(c, shape, mesh, opts=opts,
-                                        device=device, microbatches=micro)
-            runs.append((trace_case(case, mesh), extra))
+            traced = []
+            for m in _micro_cuts(micro):
+                shp = shape if m == micro else dataclasses.replace(
+                    shape, global_batch=shape.global_batch * m // micro)
+                case = specs_mod.build_case(c, shp, mesh, opts=opts,
+                                            device=device, microbatches=m)
+                traced.append(trace_case(case, mesh))
+            runs.append((_over_microbatches(traced, micro), extra))
     (base, out_bytes), _ = runs[0]
     total = base.scaled(1)
     for (a, o), extra in runs[1:]:

@@ -31,9 +31,7 @@ rank and drops the stacked dim's entry (see ``cache_specs``).
 from __future__ import annotations
 
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.models.sharding import FSDP, to_placements  # noqa: F401
-
-MODEL = "model"
+from repro_torch.models.sharding import FSDP, MODEL, to_placements  # noqa: F401
 
 
 class Spec(tuple):

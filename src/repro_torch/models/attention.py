@@ -65,9 +65,9 @@ def project_qkv(cfg, p, x):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, a.num_heads, a.head_dim)
-    k = k.reshape(B, S, a.num_kv_heads, a.head_dim)
-    v = v.reshape(B, S, a.num_kv_heads, a.head_dim)
+    q = sharding.split_heads(q, a.num_heads, seq=True)
+    k = sharding.split_heads(k, a.num_kv_heads)
+    v = sharding.split_heads(v, a.num_kv_heads)
     return q, k, v
 
 
@@ -81,16 +81,24 @@ def _grouped(a, q, k, v):
 
 
 # ------------------------------------------------------------------ core SDPA
-def _direct_attention(q, k, v, bias):
+def _direct_attention(q, k, v, bias, stats=False):
     """q: (B,S,K,G,hd); k,v: (B,T,K,hd); bias: broadcastable (B,1,1,S,T).
 
     f32 scores (the bf16 products are exact in f32), f32 softmax, then p
-    cast to ``v.dtype`` before the PV product, as the reference does."""
+    cast to ``v.dtype`` before the PV product, as the reference does.
+    ``stats``: also the softmax's row max and sum, each (B,K,G,S), for a
+    merge with other keys' (``sharding.on_shards``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
     s = s * scale + bias
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    if not stats:
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgst,btkd->bskgd", (e / l).to(v.dtype), v)
+    return o, m[..., 0], l[..., 0]
 
 
 def _chunked_attention(q, k, v, q_pos, k_pos, causal, window, chunk):
@@ -154,12 +162,14 @@ def self_attention(cfg, p, x, positions, *, causal=True, window=0,
             bias = common.causal_mask_bias(positions, positions,
                                            window if window else 0)
             bias = torch.clamp(bias, min=NEG_INF)[None, None, None]
-        o = sharding.on_shards(_direct_attention, qg, kg, vg, bias).to(x.dtype)
+        o = sharding.on_shards(_direct_attention, qg, kg, vg, bias,
+                               seq_dims=(3,)).to(x.dtype)
     else:
         o = sharding.on_shards(_chunked_attention, qg, kg, vg, positions,
-                               positions, causal, window, attn_chunk)
+                               positions, causal, window, attn_chunk,
+                               seq_dims=(0,))
     o = o.reshape(B, S, a.num_heads * a.head_dim)
-    out = o @ p["wo"]
+    out = sharding.seq_matmul(o, p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -177,7 +187,8 @@ def cross_attention(cfg, p, x, enc_k, enc_v):
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(B, S, a.num_kv_heads, a.q_groups, a.head_dim)
-    o = _direct_attention(q, enc_k, enc_v, 0.0).to(x.dtype)
+    o = sharding.on_shards(_direct_attention, q, enc_k, enc_v,
+                           0.0).to(x.dtype)
     return o.reshape(B, S, a.num_heads * a.head_dim) @ p["wo"]
 
 
@@ -213,8 +224,8 @@ def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
         q = common.apply_rope(q, ppos, cfg.rope_theta)
         k = common.apply_rope(k, ppos, cfg.rope_theta)
     slot = pos % T
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    cache_k = sharding.write_slot(cache_k, slot, k[:, 0].to(cache_k.dtype))
+    cache_v = sharding.write_slot(cache_v, slot, v[:, 0].to(cache_v.dtype))
     if pos >= T:
         valid = torch.ones((T,), dtype=torch.bool, device=x.device)
     else:
@@ -228,6 +239,7 @@ def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
     else:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         bias = torch.where(valid, zero, NEG_INF)[None, None, None, None, :]
-        o = sharding.on_shards(_direct_attention, qg, kr, vr, bias).to(x.dtype)
+        o = sharding.on_shards(_direct_attention, qg, kr, vr, bias,
+                               key_dims=(4,)).to(x.dtype)
     o = o.reshape(B, 1, a.num_heads * a.head_dim)
     return o @ p["wo"], cache_k, cache_v

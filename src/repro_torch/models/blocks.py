@@ -139,7 +139,7 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
                      kv_len: Optional[int] = None):
     """Full-sequence block. Returns (h, aux_loss, cache_entry_or_None)."""
     mixer, f, _ = kind
-    p = sharding.gather_fsdp(p)
+    p = sharding.gather_fsdp(p, like=h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache_entry = None
     hn = common.apply_norm(cfg, p["ln1"], h)
@@ -177,7 +177,7 @@ def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
     is updated in place, an SSM entry is replaced. ``pos`` is ignored by
     SSM blocks."""
     mixer, f, _ = kind
-    p = sharding.gather_fsdp(p)
+    p = sharding.gather_fsdp(p, like=h)
     hn = common.apply_norm(cfg, p["ln1"], h)
     if mixer == "attn":
         o, nk, nv = attention.decode_self_attention(

@@ -53,8 +53,8 @@ def init_norm(cfg, d: int, device):
 def apply_norm(cfg, p, x, eps: float = 1e-5):
     """Norms run in f32 and cast back; the variance is the population
     variance (``correction=0``), as ``jnp.var``. A DTensor holding partial
-    sums (a row-parallel product's output) is reduced first: a norm is
-    not linear in them."""
+    sums (a row-parallel product's output) is reduced first, a norm not
+    being linear in them, and its feature dim gathered."""
     x = sharding.reduce_partial(x)
     dt = x.dtype
     x = x.float()

@@ -133,13 +133,14 @@ def _decoder_layer_full(cfg, lp, h, pos, cross_kv, opts, kv_len):
 def _decoder_input(params, cfg, tokens):
     S = tokens.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    h = (params["embed"][tokens.long()]
+    h = (sharding.embed(params["embed"], tokens.long())
          + _rows(params["pos_dec"], pos).to(common.dtype_of(cfg)))
     return h, pos
 
 
-def _logits(params, h):
-    return lm.logits_of(h, params["embed"].t())
+def _logits(params, h, opts):
+    return lm.logits_of(h, sharding.shard_vocab(params["embed"].t(),
+                                                opts.logits_spec))
 
 
 def forward(params, cfg, tokens, frame_embeds, opts: CallOpts = CallOpts()):
@@ -156,7 +157,7 @@ def forward(params, cfg, tokens, frame_embeds, opts: CallOpts = CallOpts()):
             h, _ = _decoder_layer_full(cfg, lp, h, pos, (ck[i], cv[i]), opts,
                                        None)
     h = common.apply_norm(cfg, params["ln_dec"], h)
-    return _logits(params, h), torch.zeros((), dtype=torch.float32,
+    return _logits(params, h, opts), torch.zeros((), dtype=torch.float32,
                                            device=h.device)
 
 
@@ -175,7 +176,8 @@ def prefill(params, cfg, tokens, frame_embeds, kv_len: int,
     sk = torch.stack([k for k, _ in rings])
     sv = torch.stack([v for _, v in rings])
     h = common.apply_norm(cfg, params["ln_dec"], h[:, -1:])
-    return _logits(params, h), {"self": {"k": sk, "v": sv}, "cross": (ck, cv)}
+    return _logits(params, h, opts), {"self": {"k": sk, "v": sv},
+                                      "cross": (ck, cv)}
 
 
 def decode_step(params, cfg, tokens, pos: int, cache,
@@ -185,7 +187,8 @@ def decode_step(params, cfg, tokens, pos: int, cache,
     (B,1,V), cache); the self-attention ring is updated in place."""
     params = sharding.gather_fsdp(params, skip=("encoder", "decoder"))
     row = params["pos_dec"][min(int(pos), cfg.max_learned_pos - 1)]
-    h = params["embed"][tokens.long()] + row.to(common.dtype_of(cfg))
+    h = (sharding.embed(params["embed"], tokens.long())
+         + row.to(common.dtype_of(cfg)))
     sk, sv = cache["self"]["k"], cache["self"]["v"]
     ck, cv = cache["cross"]
     for i, lp in enumerate(params["decoder"]):
@@ -200,7 +203,7 @@ def decode_step(params, cfg, tokens, pos: int, cache,
         hn = common.apply_norm(cfg, lp["ln_ffn"], h)
         h = h + ffn_mod.dense_ffn(cfg, lp["ffn"], hn)
     h = common.apply_norm(cfg, params["ln_dec"], h)
-    return _logits(params, h), cache
+    return _logits(params, h, opts), cache
 
 
 def init_cache(cfg, batch, kv_len, dtype=torch.bfloat16, device="cuda"):

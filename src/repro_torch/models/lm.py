@@ -50,7 +50,7 @@ def init_params(cfg, *, seed: int = 0, device="cuda"):
 
 
 def _embed(cfg, p, tokens, positions, visual_embeds=None):
-    h = p["embed"][tokens.long()]
+    h = sharding.embed(p["embed"], tokens.long())
     if cfg.name.startswith("gemma"):
         h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)
     if visual_embeds is not None:
@@ -63,8 +63,9 @@ def _embed(cfg, p, tokens, positions, visual_embeds=None):
     return h
 
 
-def _unembed(cfg, p, h):
-    return logits_of(h, p["embed"].t() if cfg.tie_embeddings else p["unembed"])
+def _unembed(cfg, p, h, opts):
+    w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
+    return logits_of(h, sharding.shard_vocab(w, opts.logits_spec))
 
 
 class _Logits(torch.autograd.Function):
@@ -106,24 +107,24 @@ def _positions(tokens, visual_embeds):
 def forward(params, cfg, tokens, *, visual_embeds=None,
             opts: CallOpts = CallOpts()):
     """Full-sequence logits. tokens: (B, S_text); visual_embeds: (B, V, d)."""
-    params = sharding.gather_fsdp(params, skip=("layers",))
+    params = sharding.gather_fsdp(params, skip=("layers",), like=tokens)
     positions = _positions(tokens, visual_embeds)
     h = _embed(cfg, params, tokens, positions, visual_embeds)
     h, aux, _ = blocks.apply_stack(cfg, params["layers"], h, positions, opts)
     h = common.apply_norm(cfg, params["ln_f"], h)
-    return _unembed(cfg, params, h), aux
+    return _unembed(cfg, params, h, opts), aux
 
 
 def prefill(params, cfg, tokens, kv_len: int, *, visual_embeds=None,
             opts: CallOpts = CallOpts()):
     """Prefill: returns (last-token logits (B,1,V), cache)."""
-    params = sharding.gather_fsdp(params, skip=("layers",))
+    params = sharding.gather_fsdp(params, skip=("layers",), like=tokens)
     positions = _positions(tokens, visual_embeds)
     h = _embed(cfg, params, tokens, positions, visual_embeds)
     h, _, cache = blocks.apply_stack(cfg, params["layers"], h, positions,
                                      opts, kv_len=kv_len)
     h = common.apply_norm(cfg, params["ln_f"], h[:, -1:])
-    return _unembed(cfg, params, h), cache
+    return _unembed(cfg, params, h, opts), cache
 
 
 def decode_step(params, cfg, tokens, pos: int, cache, *,
@@ -132,8 +133,8 @@ def decode_step(params, cfg, tokens, pos: int, cache, *,
 
     Returns (logits (B,1,V), cache); the cache is updated in place.
     """
-    params = sharding.gather_fsdp(params, skip=("layers",))
-    h = params["embed"][tokens.long()]
+    params = sharding.gather_fsdp(params, skip=("layers",), like=tokens)
+    h = sharding.embed(params["embed"], tokens.long())
     if cfg.name.startswith("gemma"):
         h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)
     if cfg.pos_emb == "learned":
@@ -141,7 +142,7 @@ def decode_step(params, cfg, tokens, pos: int, cache, *,
     h, new_cache = blocks.decode_stack(cfg, params["layers"], h, pos, cache,
                                        opts)
     h = common.apply_norm(cfg, params["ln_f"], h)
-    return _unembed(cfg, params, h), new_cache
+    return _unembed(cfg, params, h, opts), new_cache
 
 
 def init_cache(cfg, batch, kv_len, dtype=torch.bfloat16, device="cuda"):

@@ -11,12 +11,15 @@ counterpart of a ``PartitionSpec``.
 """
 from __future__ import annotations
 
+import math
 import sys
 
 import torch
 
-# the mesh axis FSDP shards weights over (``launch.shardings``' rules)
+# the mesh axes FSDP and tensor parallelism shard weights over
+# (``launch.shardings``' rules)
 FSDP = "data"
+MODEL = "model"
 
 
 def is_dtensor(t) -> bool:
@@ -50,35 +53,78 @@ def to_placements(spec, mesh) -> list:
     return out
 
 
+class _Pinned(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    forward value's placements."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.place = tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.place)
+
+
 def constrain(t, spec):
     """The reference's ``with_sharding_constraint``: a DTensor is
-    redistributed to the placements of ``spec`` on its own mesh; a plain
-    tensor and a ``None`` spec leave ``t`` as it is."""
+    redistributed to the placements of ``spec`` on its own mesh, and so
+    is its gradient in a backward (the constraint's transpose is the same
+    constraint on the cotangent); a plain tensor and a ``None`` spec
+    leave ``t`` as it is."""
     if spec is None or not is_dtensor(t):
         return t
-    return t.redistribute(t.device_mesh, to_placements(spec, t.device_mesh))
+    return _pinned(t.redistribute(t.device_mesh,
+                                  to_placements(spec, t.device_mesh)))
+
+
+def _pinned(t):
+    """``t``, its gradient in a backward redistributed to its placements
+    (where autograd records one)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Pinned.apply(t)
+    return t
 
 
 def reduce_partial(t):
-    """A DTensor's partial placements reduced (all-reduced) to replicated
-    ones; any other tensor as it is."""
-    if not is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+    """A DTensor read whole along its last dim (a norm's input): its
+    partial placements reduced (all-reduced) and its last dim gathered
+    where it is sharded, to replicated placements, and its gradient
+    reduced to them in a backward (the all-reduce of a column-parallel
+    product's input gradient); any other tensor as it is. The feature dim
+    of a residual stream is sharded only where no activation spec pins
+    it (a batch of one), and there it is small."""
+    if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate
-    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
-                                          else p for p in t.placements])
+    last = set(_mesh_dims(t, -1))
+    place = [Replicate() if p.is_partial() or i in last else p
+             for i, p in enumerate(t.placements)]
+    if place != list(t.placements):
+        t = t.redistribute(t.device_mesh, place)
+    return _pinned(t)
 
 
-def gather_fsdp(tree, skip=()):
+def gather_fsdp(tree, skip=(), like=None):
     """FSDP's weight streaming, the all-gather XLA inserts before a
     layer's weights are used: each DTensor leaf of ``tree`` (a dict of
     weights) sharded over the ``FSDP`` mesh dim comes back replicated over
     that dim, its other placements kept; the entries named in ``skip``
     (layer lists) as they are. A dict without DTensors comes back as it
-    is."""
+    is, and so does every leaf where ``like`` (the activation the
+    weights meet) is a DTensor whose batch is not sharded over the
+    ``FSDP`` dim (a batch of one): there XLA keeps the weights sharded
+    and reduces the products' partial sums instead, a device computing
+    1/n of each."""
     if isinstance(tree, dict):
         if "torch.distributed.tensor" not in sys.modules:
             return tree
+        if is_dtensor(like) and FSDP in (like.device_mesh.mesh_dim_names
+                                         or ()):
+            i = like.device_mesh.mesh_dim_names.index(FSDP)
+            if not like.placements[i].is_shard(0):
+                return tree
         return {k: v if k in skip else gather_fsdp(v)
                 for k, v in tree.items()}
     if not is_dtensor(tree) or FSDP not in (
@@ -90,49 +136,391 @@ def gather_fsdp(tree, skip=()):
     return tree.redistribute(tree.device_mesh, placements)
 
 
+def _mesh_dims(t, dim):
+    """The mesh dims over which the DTensor ``t`` shards tensor ``dim``."""
+    dim %= t.dim()
+    return [i for i, p in enumerate(t.placements) if p.is_shard(dim)]
+
+
+def _block(mesh, dims) -> int:
+    """This device's block of a tensor dim sharded over the mesh dims
+    ``dims`` (major to minor): its shard's index along that dim."""
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    index = 0
+    for i in dims:
+        index = index * mesh.size(i) + coord[i]
+    return index
+
+
+def split_heads(t, n: int, *, seq: bool = False):
+    """``t`` (B, S, n * hd) viewed as (B, S, n, hd). A DTensor whose last
+    dim is sharded over mesh dims whose size does not divide ``n`` (56 or
+    8 heads on 16 devices) cannot keep them on the heads, so it moves
+    them: to the sequence dim (an all-to-all) where ``seq`` and S divides,
+    as XLA shards a query sequence, else it gathers them (K/V are then
+    replicated there). A plain tensor is only viewed."""
+    B, S = t.shape[:2]
+    if is_dtensor(t):
+        mesh = t.device_mesh
+        place = list(t.placements)
+        for i in _mesh_dims(t, -1):
+            if n % mesh.size(i) == 0:
+                continue
+            on_seq = seq and S % mesh.size(i) == 0 and not any(
+                p.is_shard(1) for p in place)
+            from torch.distributed.tensor import Replicate, Shard
+            place[i] = Shard(1) if on_seq else Replicate()
+        if place != list(t.placements):
+            t = t.redistribute(mesh, place)
+    return t.reshape(B, S, n, t.shape[-1] // n)
+
+
+def seq_matmul(x, w):
+    """``x @ w``. A DTensor ``x`` whose sequence (dim 1) is sharded over
+    mesh dims that also shard ``w``'s rows (an attention output against
+    its row-parallel out-projection) is multiplied on its local shards
+    with ``w`` gathered over those dims (torch 2.11 cannot flatten the
+    sharded batch and sequence into a product's rows), and the product's
+    sequence is gathered after it: the all-gathers of XLA's
+    sequence-parallel plan, where DTensor would move ``x`` and reduce a
+    (B, S, d) partial sum."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Replicate, Shard
+    seq = set(_mesh_dims(x, 1))
+    if not seq:
+        return x @ w
+    w = w.redistribute(w.device_mesh, [
+        Replicate() if i in seq else p for i, p in enumerate(w.placements)])
+    out_place = []
+    for p, wp in zip(x.placements, w.placements):
+        if p.is_partial() or wp.is_shard(0) or (
+                p.is_shard() and not wp.is_replicate()) or p.is_shard(2):
+            return _gather_seq(x @ w, seq)
+        out_place.append(Shard(2) if wp.is_shard(1) else p)
+    out = _local_map(torch.matmul, out_place,
+                     (list(x.placements), list(w.placements)), (x, w))
+    return _gather_seq(out, seq)
+
+
+def _gather_seq(t, seq):
+    """``t`` with its sequence gathered over the mesh dims ``seq``."""
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if i in seq else p for i, p in enumerate(t.placements)])
+
+
+def pad_seq(t, n: int):
+    """``t`` (B, S, C) with ``n`` zero rows before its sequence. A DTensor
+    pads its local shards, its sequence gathered first where it is
+    sharded (torch 2.11 plans no redistribution for DTensor's own pad of
+    some layouts)."""
+    import torch.nn.functional as F
+
+    def pad(a):
+        return F.pad(a, (0, 0, n, 0))
+    if not is_dtensor(t):
+        return pad(t)
+    seq = set(_mesh_dims(t, 1))
+    if seq:
+        t = _gather_seq(t, seq)
+    place = list(t.placements)
+    return _local_map(pad, place, (place,), (t,))
+
+
 def repeat_kv(q, k, v, groups: int):
     """(q, k, v, G) for q (B,S,H,hd) and k/v (B,T,K,hd), to be split as q
     (B,S,H/G,G,hd) against k/v (B,T,H/G,hd): plain tensors as they are,
-    with G = ``groups``. A DTensor q is not split into (K, G), which
-    DTensor cannot shard when K does not divide the mesh dim its heads
-    are on; its K/V are repeated to the H heads instead (G = 1). Head h
-    meets K/V head h // G either way: the same products."""
-    if groups == 1 or not is_dtensor(q):
+    with G = ``groups``. On DTensors: K/V sharded along T (a cache) keep
+    their layout and G, and q's heads gather (its partial sums reduce);
+    a q whose heads are whole (its sequence sharded, ``split_heads``)
+    keeps G, its K/V taking q's batch placement; a q whose heads are
+    sharded is not split into (K, G), which DTensor cannot shard when K
+    does not divide the mesh dim its heads are on, and its K/V are
+    repeated to the H heads instead, with q's batch and head placements
+    (G = 1). Head h meets K/V head h // G either way: the same
+    products."""
+    if not is_dtensor(q):
         return q, k, v, groups
     from torch.distributed.tensor import Replicate
-    k, v = (t.repeat_interleave(groups, dim=2) for t in (k, v))
     if any(p.is_shard(1) for p in k.placements):
-        # a cache sharded along T keeps its layout; q's heads gather
         q = q.redistribute(q.device_mesh, [
-            Replicate() if p.is_shard(2) else p for p in q.placements])
-    else:
-        # the repeated heads take q's batch and head placements
-        place = [p if p.is_shard() and p.dim in (0, 2) else Replicate()
-                 for p in q.placements]
+            Replicate() if p.is_shard(2) or p.is_partial() else p
+            for p in q.placements])
+        return q, k, v, groups
+    if groups == 1:
+        return q, k, v, groups
+    if not _mesh_dims(q, 2):
+        place = [p if p.is_shard(0) else Replicate() for p in q.placements]
         k, v = (t.redistribute(q.device_mesh, place) for t in (k, v))
+        return q, k, v, groups
+    k, v = (t.repeat_interleave(groups, dim=2) for t in (k, v))
+    place = [p if p.is_shard() and p.dim in (0, 2) else Replicate()
+             for p in q.placements]
+    k, v = (t.redistribute(q.device_mesh, place) for t in (k, v))
     return q, k, v, 1
 
 
-def on_shards(core, q, k, v, *rest):
-    """``core(q, k, v, *rest)``; for DTensors laid out alike over batch and
-    heads only (each placement ``Shard(0)``, ``Shard(2)`` or replicated,
-    the same on q, k and v) and no gradient to record, run on each
-    device's shard (``local_map``): attention is independent across batch
-    rows and heads, and DTensor (torch 2.11) cannot flatten two sharded
-    dims into the batch of its products. (A train step keeps DTensor's
-    own path: the local map's backward fails on a transposed gradient.)"""
-    if not is_dtensor(q) or (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v))):
+def write_slot(cache, slot: int, value):
+    """``cache[:, slot] = value`` for a cache (B, T, K, hd) and a value
+    (B, K, hd), in place. A DTensor cache sharded along T is written on
+    its shards (``local_map``): the device holding ``slot`` writes it,
+    where DTensor would gather the cache to select one slot (XLA's
+    dynamic-update-slice touches the owning shard only)."""
+    if not is_dtensor(cache) or not _mesh_dims(cache, 1):
+        cache[:, slot] = value
+        return cache
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    first = _block(mesh, _mesh_dims(cache, 1))
+    place = list(cache.placements)
+    v_place = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else
+               p if p.is_shard(0) else Replicate() for p in place]
+
+    def local(c, v):
+        i = slot - first * c.shape[1]
+        if 0 <= i < c.shape[1]:
+            c[:, i] = v
+        return c
+    return _local_map(local, place, (place, v_place),
+                      (cache, _as_dtensor(value, mesh, v_place)))
+
+
+def _as_dtensor(t, mesh, place):
+    """``t`` as a DTensor on ``mesh`` with placements ``place``: a plain
+    tensor is taken as replicated first (a local chunk where ``place``
+    shards it, no collective)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, place)
+
+
+def on_shards(core, q, k, v, *rest, seq_dims=(), key_dims=()):
+    """``core(q, k, v, *rest)``, attention on q (B,S,K,G,hd) and k/v
+    (B,T,K,hd); for DTensors laid out over batch, heads, the query
+    sequence and the keys only, run on each device's shard
+    (``local_map``): attention is independent across batch rows, heads
+    and query rows, and DTensor (torch 2.11) cannot flatten two sharded
+    dims into the batch of its products. On each mesh dim q, k and v are
+    all ``Shard(0)``, all ``Shard(2)`` or all replicated, or q is
+    ``Shard(1)`` (its sequence) and k and v replicated, or q is
+    replicated and k and v ``Shard(1)`` (a cache sharded along T). The
+    tensor ``rest[i]`` is sharded alike along its dim ``seq_dims[i]``
+    (q's sequence: a mask, q's positions) and ``key_dims[i]`` (the
+    keys). Over keys on shards, ``core(..., stats=True)`` returns each
+    shard's softmax output with its row max and sum, and the shards merge
+    as XLA reduces a softmax over a sharded dim: an all-reduce of the max,
+    then of the rescaled sums. Any other layout keeps DTensor's own path.
+    Under autograd the local core's VJP runs on the shards too
+    (``_LocalMap``)."""
+    if not is_dtensor(q):
         return core(q, k, v, *rest)
+    from torch.distributed.tensor import Replicate, Shard
     place = tuple(q.placements)
-    if not (all(p.is_replicate() or p.is_shard(0) or p.is_shard(2)
-                for p in place)
-            and tuple(k.placements) == tuple(v.placements) == place):
+    kv = tuple(k.placements)
+    for p, pk in zip(place, kv):
+        if not ((p.is_replicate() or p.is_shard(0) or p.is_shard(2))
+                and pk == p or p.is_shard(1) and pk.is_replicate()
+                or p.is_replicate() and pk.is_shard(1)):
+            return core(q, k, v, *rest)
+    if tuple(v.placements) != kv:
         return core(q, k, v, *rest)
+    mesh = q.device_mesh
+    keys = [i for i, p in enumerate(kv) if p.is_shard(1)]
+    n = len(rest)
+    seq_dims = tuple(seq_dims) + (None,) * (n - len(seq_dims))
+    key_dims = tuple(key_dims) + (None,) * (n - len(key_dims))
+    args, in_place = [], []
+    for t, ds, dk in zip(rest, seq_dims, key_dims):
+        if not isinstance(t, torch.Tensor) or (ds is None and dk is None):
+            args.append(t)
+            in_place.append(None)
+            continue
+        tp = [Shard(ds) if p.is_shard(1) and ds is not None else
+              Shard(dk) if i in keys and dk is not None else Replicate()
+              for i, p in enumerate(place)]
+        args.append(_as_dtensor(t, mesh, tp))
+        in_place.append(tp)
+    in_place = (list(place), list(kv), list(kv)) + tuple(in_place)
+    if not keys:
+        return _local_map(core, list(place), in_place, (q, k, v, *args))
+
+    # per shard of the keys: (o, m, l) stacked on a new leading dim
+    # sharded over the keys' mesh dims, then merged by reductions over it
+    def stacked(*a):
+        return tuple(t[None] for t in core(*a, stats=True))
+
+    def lead(shift):
+        return [Shard(0) if i in keys else
+                Shard(p.dim + shift) if p.is_shard() else Replicate()
+                for i, p in enumerate(place)]
+    # m and l are (B, K, G, S): q's batch dim, no heads of q's (replicated)
+    return merge_softmax(*_local_map(
+        stacked, (lead(1), lead(1), lead(1)), in_place, (q, k, v, *args)))
+
+
+def merge_softmax(o, m, l):
+    """Attention over n shards of its keys, merged: ``o`` (n,B,S,K,G,hd)
+    each shard's softmax output, ``m`` and ``l`` (n,B,K,G,S) its row max
+    and sum. Each shard's output weighs exp(m - max over shards) * l; on
+    DTensors sharded along n, the max and the two sums are all-reduces."""
+    w = torch.exp(m - m.amax(dim=0)) * l                # (n, B, K, G, S)
+    w = w.permute(0, 1, 4, 2, 3)[..., None]             # (n, B, S, K, G, 1)
+    out = reduce_partial((o.float() * w).sum(dim=0)) / w.sum(dim=0)
+    return out.to(o.dtype)
+
+
+def _local_map(fn, out_place, in_place, args):
+    """``fn`` run on the local shards of ``args`` (DTensors in the
+    placements ``in_place``; ``None`` for an argument passed as it is),
+    its output (a tensor or a tuple) DTensors in ``out_place``. Where
+    autograd records a DTensor argument, ``_LocalMap`` runs it."""
+    if torch.is_grad_enabled() and any(
+            is_dtensor(a) and a.requires_grad for a in args):
+        out = _LocalMap.apply(fn, out_place, in_place, *args)
+        return out[0] if len(out) == 1 else out
     from torch.distributed.tensor.experimental import local_map
-    return local_map(core, out_placements=list(place),
-                     in_placements=(list(place),) * 3 + (None,) * len(rest))(
-        q, k, v, *rest)
+    return local_map(fn, out_placements=out_place,
+                     in_placements=tuple(in_place))(*args)
+
+
+def _detached(t):
+    return t.detach()
+
+
+def _same(t):
+    return t
+
+
+class _LocalMap(torch.autograd.Function):
+    """``_local_map`` under autograd: the forward runs ``fn`` on the local
+    shards and keeps its local graph (its outputs contiguous, as a view
+    of them in a backward needs); the backward takes each gradient to
+    its output's placements, contiguous, and runs that graph's VJP on
+    the local shards. A gradient comes back contiguous, in its input's
+    placements, but partial (summed over the mesh dim) where the input
+    is replicated over a mesh dim that shards the output: each device's
+    shard of the output met all of it. (``local_map``'s own backward
+    fails on a transposed gradient on torch 2.11.)"""
+
+    @staticmethod
+    def forward(ctx, fn, out_place, in_place, *args):
+        from torch.distributed.tensor import DTensor
+        ctx.set_materialize_grads(False)   # an unused output: no gradient
+        ins = [a.to_local().detach().requires_grad_(a.requires_grad)
+               if is_dtensor(a) else a for a in args]
+        # the local graph keeps what it saves (a checkpoint's hooks would
+        # recompute the enclosing block again when they were unpacked),
+        # detached: a saved output packed as itself would hold its own
+        # node in a cycle no collector breaks
+        with torch.autograd.graph.saved_tensors_hooks(_detached, _same), \
+                torch.enable_grad():
+            outs = fn(*ins)
+        single = isinstance(outs, torch.Tensor)
+        outs = (outs,) if single else tuple(outs)
+        places = (out_place,) if single else tuple(out_place)
+        mesh = next(a.device_mesh for a in args if is_dtensor(a))
+        ctx.graph = (ins, outs, places, in_place, mesh,
+                     [is_dtensor(a) and a.requires_grad for a in args])
+        return tuple(DTensor.from_local(o.detach().contiguous(), mesh, pl,
+                                        run_check=False)
+                     for o, pl in zip(outs, places))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        ins, outs, places, in_place, mesh, wanted = ctx.graph
+        del ctx.graph
+        # a partial output's summands each get the whole gradient
+        pairs = [(o, g.redistribute(mesh, [Replicate() if p.is_partial()
+                                           else p for p in pl])
+                  .to_local().contiguous())
+                 for o, g, pl in zip(outs, grads, places)
+                 if g is not None and o.requires_grad]
+        leaves = [x for x, w in zip(ins, wanted) if w]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       leaves, [g for _, g in pairs],
+                                       allow_unused=True))
+        sharded = {i for pl in places for i, p in enumerate(pl)
+                   if isinstance(p, Shard)}
+        out = [None, None, None]
+        for x, w, pl in zip(ins, wanted, in_place):
+            if not w:
+                out.append(None)
+                continue
+            g = next(got)
+            if g is None:
+                g = torch.zeros_like(x)
+            gp = [Partial() if i in sharded and p.is_replicate() else p
+                  for i, p in enumerate(pl)]
+            out.append(DTensor.from_local(g.contiguous(), mesh, gp,
+                                          run_check=False))
+        return tuple(out)
+
+
+def split_sharded(t, sizes, counts):
+    """``torch.split(t, sizes, dim=-1)``. A DTensor whose last dim is
+    sharded (a model-sharded in-projection, whose z, x, B, C and dt
+    pieces do not start at shard boundaries) is gathered there first;
+    then each piece is sharded again over those mesh dims whose size
+    divides its count in ``counts`` (its heads or groups; ``None``: kept
+    whole), a local slice, and left replicated over the others. A plain
+    tensor is only split."""
+    if not is_dtensor(t) or not _mesh_dims(t, -1):
+        return torch.split(t, sizes, dim=-1)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, dims = t.device_mesh, _mesh_dims(t, -1)
+    t = t.redistribute(mesh, [Replicate() if i in dims else p
+                              for i, p in enumerate(t.placements)])
+    out = []
+    for piece, n in zip(torch.split(t, sizes, dim=-1), counts):
+        place = [Shard(t.dim() - 1) if i in dims and n is not None
+                 and n % mesh.size(i) == 0 else p
+                 for i, p in enumerate(piece.placements)]
+        out.append(piece.redistribute(mesh, place))
+    return tuple(out)
+
+
+def ssd_on_shards(scan, xc, Bc, Cc, dtc, dAc, h0):
+    """``scan(xc, Bc, Cc, dtc, dAc, h0)``: the SSD's chunked scan, x
+    (nc, B, Q, heads, hd), B and C (nc, B, Q, groups, N), dt and dA
+    (nc, B, Q, heads), h0 (B, heads, hd, N). DTensors run on each
+    device's batch rows and heads (``local_map``; every head is its own
+    scan): dt, dA and h0 take x's batch and head placements, and B and C,
+    whole groups replicated over the heads' mesh dims, are read for the
+    device's heads (head h of G groups over H heads reads group
+    h // (H / G)). Plain tensors run the scan as they are."""
+    if not is_dtensor(xc):
+        return scan(xc, Bc, Cc, dtc, dAc, h0)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = xc.device_mesh
+    heads = _mesh_dims(xc, 3)
+    batch = _mesh_dims(xc, 1)
+
+    def place(b, h, *, groups=False):
+        return [Shard(b) if i in batch else
+                Shard(h) if i in heads and not groups else Replicate()
+                for i in range(mesh.ndim)]
+    H, G = xc.shape[3], Bc.shape[3]
+    # this device's first head
+    first = _block(mesh, heads) * (H // math.prod(mesh.size(i)
+                                                  for i in heads))
+
+    def local(x, b, c, dt, da, h):
+        if G != H:
+            idx = (torch.arange(x.shape[3], device=x.device) + first) // (
+                H // G)
+            b, c = b.index_select(3, idx), c.index_select(3, idx)
+        return scan(x, b, c, dt, da, h)
+    chunk, grouped, state = (place(1, 3), place(1, 3, groups=True),
+                             place(0, 1))
+    args = [_as_dtensor(t, mesh, pl) for t, pl in (
+        (xc, chunk), (Bc, grouped), (Cc, grouped), (dtc, chunk),
+        (dAc, chunk), (h0, state))]
+    return _local_map(local, (state, chunk),
+                      (chunk, grouped, grouped, chunk, chunk, state), args)
 
 
 def experts_like(dispatch, w):
@@ -153,20 +541,80 @@ def experts_like(dispatch, w):
 def depthwise(conv, x, w):
     """``conv(x, w)``, a depthwise conv1d of x (B, C, L) with w (C, 1, W).
     DTensor has no strategy for a grouped convolution, so a DTensor x
-    runs it on each device's shard (``local_map``): batch and channels
-    keep x's sharding (its length dim is gathered), the weight's channels
-    follow x's."""
+    runs it on each device's shard (``local_map``): x's batch keeps its
+    sharding, its channels are sharded as w's (a local slice of a
+    replicated x) or, where w's are whole, as x's, and its length dim
+    is gathered; the weight's channels follow x's."""
     if not is_dtensor(x):
         return conv(x, w)
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    x_place = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
-               for p in x.placements]
+    w_chan = set(_mesh_dims(w, 0))
+    x_place = [p if p.is_shard(0) else
+               Shard(1) if p.is_shard(1) or i in w_chan else Replicate()
+               for i, p in enumerate(x.placements)]
     w_place = [Shard(0) if p.is_shard(1) else Replicate() for p in x_place]
     x = x.redistribute(x.device_mesh, x_place)
     w = w.redistribute(x.device_mesh, w_place)
-    return local_map(conv, out_placements=x_place,
-                     in_placements=(x_place, w_place))(x, w)
+    return _local_map(conv, x_place, (x_place, w_place), (x, w))
+
+
+def embed(table, ids):
+    """``table[ids]``, the rows of an embedding table (V, d). A DTensor
+    table whose vocab is sharded looks its ids up on each device's rows
+    (``local_map``): an id outside them reads a zero row, and the rows'
+    partial sums are all-reduced over the vocab's mesh dims (the
+    vocab-parallel lookup, which DTensor plans itself on torch 2.13 but
+    not on 2.11 for ids sharded over two mesh dims). Anything else is
+    indexed as it is."""
+    if not is_dtensor(table) or not _mesh_dims(table, 0):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, vocab = table.device_mesh, _mesh_dims(table, 0)
+    if not is_dtensor(ids):
+        ids = _as_dtensor(ids, mesh, [Replicate()] * mesh.ndim)
+    n = ids.dim()
+    out_place = []
+    for i, (tp, ip) in enumerate(zip(table.placements, ids.placements)):
+        if i in vocab and ip.is_replicate():
+            out_place.append(Partial())
+        elif tp.is_replicate() and not ip.is_partial():
+            out_place.append(ip)
+        elif tp.is_shard(1) and ip.is_replicate():
+            out_place.append(Shard(n))
+        else:
+            return table[ids]
+    first = _block(mesh, vocab)
+
+    def local(tab, i):
+        j = i - first * tab.shape[0]
+        ok = (j >= 0) & (j < tab.shape[0])
+        rows = tab[j.clamp(0, tab.shape[0] - 1)]
+        return torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    out = _local_map(local, out_place,
+                     (list(table.placements), list(ids.placements)),
+                     (table, ids))
+    return out.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                   for p in out.placements])
+
+
+def shard_vocab(w, logits_spec=None):
+    """The unembedding ``w`` (d, V). A DTensor whose vocab the rules left
+    whole over the ``MODEL`` mesh dim (a V that does not divide it, as
+    mamba2's 50280 on 16) is sharded there unevenly, a local slice, as
+    XLA pads a dim it shards: each device computes its slice of the
+    logits. Where ``logits_spec`` pins the logits (a train step's
+    constraint, which leaves such a vocab whole), XLA computes them
+    whole, and so does ``w``. Anything else as it is."""
+    if (logits_spec is not None or not is_dtensor(w)
+            or MODEL not in (w.device_mesh.mesh_dim_names or ())):
+        return w
+    i = w.device_mesh.mesh_dim_names.index(MODEL)
+    if not w.placements[i].is_replicate():
+        return w
+    from torch.distributed.tensor import Shard
+    place = list(w.placements)
+    place[i] = Shard(1)
+    return w.redistribute(w.device_mesh, place)
 
 
 def gold_logits(logits, labels):

@@ -60,17 +60,31 @@ def init_ssm(gen, cfg):
 
 
 def _split_proj(cfg, proj):
+    """z, x, B, C, dt of the in-projection; on a mesh z and dt keep the
+    heads' sharding, x, B and C (the conv's input) come whole."""
     s = cfg.ssm
     di, nh, _ = ssm_dims(cfg)
     gn = s.n_groups * s.d_state
-    return torch.split(proj, [di, di, gn, gn, nh], dim=-1)  # z, x, B, C, dt
+    return sharding.split_sharded(proj, [di, di, gn, gn, nh],
+                                  [nh, None, None, None, nh])
+
+
+def _split_conv(cfg, xbc):
+    """x, B, C of the conv's output; on a mesh x takes the heads'
+    sharding and B and C their groups' (whole where the groups do not
+    divide the mesh dim)."""
+    s = cfg.ssm
+    di, nh, _ = ssm_dims(cfg)
+    gn = s.n_groups * s.d_state
+    return sharding.split_sharded(xbc, [di, gn, gn],
+                                  [nh, s.n_groups, s.n_groups])
 
 
 def _causal_conv(cfg, p, xbc):
     """Depthwise causal conv over (B, S, C) channels; (B, S, C) out,
     contiguous."""
     W = cfg.ssm.conv_width
-    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    pad = sharding.pad_seq(xbc, W - 1)
     w = p["conv_w"].to(xbc.dtype).t().contiguous()[:, None, :]  # (C, 1, W)
     out = sharding.depthwise(lambda a, b: F.conv1d(a, b, groups=a.shape[1]),
                              pad.transpose(1, 2), w)
@@ -93,7 +107,6 @@ def ssd_forward(cfg, p, x, *, initial_state=None, return_state=False,
     """
     s = cfg.ssm
     di, nh, _ = ssm_dims(cfg)
-    gn = s.n_groups * s.d_state
     B_, S, _ = x.shape
     Q = min(s.chunk_size, S)
     assert S % Q == 0, f"seq {S} not divisible by chunk {Q}"
@@ -105,10 +118,10 @@ def ssd_forward(cfg, p, x, *, initial_state=None, return_state=False,
     # pre-conv window for decode (pad in case S < conv_width - 1); a copy,
     # so the cache does not hold the whole (B, S, C) input alive
     W = s.conv_width
-    conv_tail = F.pad(xbc_raw, (0, 0, max(W - 1 - S, 0), 0))
+    conv_tail = sharding.pad_seq(xbc_raw, max(W - 1 - S, 0))
     conv_tail = conv_tail[:, -(W - 1):].clone()
     xbc = _causal_conv(cfg, p, xbc_raw)
-    xs, Bm, Cm = torch.split(xbc, [di, gn, gn], dim=-1)
+    xs, Bm, Cm = _split_conv(cfg, xbc)
 
     xh = xs.reshape(B_, S, nh, s.head_dim)
     Bg = Bm.reshape(B_, S, s.n_groups, s.d_state)
@@ -125,8 +138,9 @@ def ssd_forward(cfg, p, x, *, initial_state=None, return_state=False,
           else torch.zeros((B_, nh, s.head_dim, s.d_state),
                            dtype=torch.float32, device=x.device))
     scan = ssd_scan.ssd_chunk_scan if use_kernels else ref.ssd_chunk_scan_ref
-    final, yc = scan(chunked(xh), chunked(Bg), chunked(Cg), chunked(dt),
-                     chunked(dA), h0)
+    final, yc = sharding.ssd_on_shards(scan, chunked(xh), chunked(Bg),
+                                       chunked(Cg), chunked(dt), chunked(dA),
+                                       h0)
     y = yc.transpose(0, 1).reshape(B_, S, nh, s.head_dim)
 
     y = y + p["D"][None, None, :, None] * xh.float()
@@ -143,7 +157,6 @@ def ssd_decode_step(cfg, p, x, conv_state, ssm_state):
     """
     s = cfg.ssm
     di, nh, _ = ssm_dims(cfg)
-    gn = s.n_groups * s.d_state
     B_ = x.shape[0]
     proj = x @ p["in_proj"]
     z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
@@ -153,7 +166,7 @@ def ssd_decode_step(cfg, p, x, conv_state, ssm_state):
     conv_out = (torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
                 + p["conv_b"].float())
     conv_out = F.silu(conv_out)[:, None, :].to(x.dtype)
-    xs, Bm, Cm = torch.split(conv_out, [di, gn, gn], dim=-1)
+    xs, Bm, Cm = _split_conv(cfg, conv_out)
 
     xh = xs.reshape(B_, nh, s.head_dim).float()
     hpg = nh // s.n_groups
