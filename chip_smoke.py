@@ -194,7 +194,18 @@ deepseek's 16 heads of 128 with one query head a KV head.
    held: the step time (CUDA events, host clock, device busy share), a
    warm ``predict_lattice`` call, and a cold and a warm
    ``CapacityTable(predictor=RaPPModel)`` fill of gemma-7b's six batches.
-   Holds that no kernel launched during the phase.
+   Then the two twins of the reference's RaPP benchmarks, trained on the
+   card: Fig. 5 (``repro_torch.examples.rapp_accuracy``, quick: the
+   20-config corpus at batches 1, 4, 16, RaPP and the static-only DIPPM
+   1200 steps each; prints both MAPEs, the gap and the train walls; holds
+   RaPP's validation MAPE under 40%, the reference's bar) and RaPP in the
+   loop (``repro_torch.examples.rapp_in_loop``, retrained: 600 steps,
+   the oracle and the RaPP arm over a 90 s trace; prints each arm's cost
+   per 1k, p95, violations at 2x and simulator wall; holds the cluster's
+   invariants in both arms). Holds the loop RaPP's ``predict_lattice``
+   on the card within rel 1e-4 of the same params' on the host, for
+   qwen2.5-3b at batches 1, 4, 8 and 16. Holds that no kernel launched
+   during the phase.
 
 14. Launch: the launchers of ``repro_torch.launch``. (a) The serve
    launcher at its defaults (``serve.serve``: full-width qwen2.5-3b,
@@ -2366,15 +2377,80 @@ def phase_rapp(seed):
           f"and features included) {fills[0][0]:.1f} ms host / "
           f"{fills[0][1]:.1f} ms events, warm {fills[1][0]:.2f} ms host / "
           f"{fills[1][1]:.2f} ms events")
+    del run, card, fresh, host
+    rapp_twins(seed)
     after = counts()
     print(f"[rapp] kernel launches during the phase: "
           f"{[a - b for a, b in zip(after, before)]}")
     if after != before:
         raise AssertionError(f"[rapp] launched kernels: {before} -> {after}")
-    del run, card, fresh, host
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[rapp] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def rapp_twins(seed):
+    """[rapp]'s twins of ``benchmarks/fig5_rapp_accuracy.py`` and
+    ``benchmarks/rapp_in_loop.py``, trained on the card."""
+    import io
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import FnSpec
+    from repro_torch.core.rapp import dataset as D, predictor as P
+    from repro_torch.examples import rapp_accuracy, rapp_in_loop
+
+    t = time.perf_counter()
+    out = io.StringIO()
+    mape, derived, res = rapp_accuracy.run(quick=True, out=out, seed=seed,
+                                           device=CARD)
+    for line in out.getvalue().splitlines():
+        print(f"[rapp] fig5: {line}")
+    r, d = res["rapp"], res["dippm"]
+    print(f"[rapp] fig5: RaPP val {r['val_mape']:.2f}% test "
+          f"{r['test_mape']:.2f}% (bar: val under 40%), DIPPM val "
+          f"{d['val_mape']:.2f}% test {d['test_mape']:.2f}%, gap "
+          f"{d['test_mape'] / max(r['test_mape'], 1e-9):.2f}x; "
+          f"{r['n_train']} train / {r['n_test']} test samples; train walls "
+          f"(1200 steps each, validation passes included) RaPP "
+          f"{r['train_s']:.2f} s, DIPPM {d['train_s']:.2f} s; twin "
+          f"{time.perf_counter() - t:.1f} s in all ({derived})")
+    if not r["val_mape"] < 40.0:
+        raise AssertionError(f"[rapp] fig5: RaPP val MAPE {r['val_mape']}")
+    del res
+
+    t = time.perf_counter()
+    out = io.StringIO()
+    _, derived, loop = rapp_in_loop.run(
+        out=out, seed=seed, retrain=True, device=CARD,
+        cache_dir=os.path.join("build", "rapp_cache"))
+    for line in out.getvalue().splitlines():
+        print(f"[rapp] in-loop: {line}")
+    o, a = loop["oracle"], loop["rapp"]
+    print(f"[rapp] in-loop: RaPP val MAPE {loop['val_mape']:.2f}%, train "
+          f"wall {loop['train_s']:.2f} s (dataset on the host and 600 "
+          f"steps on the card); oracle cost/1k {o.cost_per_1k:.5f} p95 "
+          f"{o.p95_ms:.1f} ms viol@2x {o.viol_2x:.4f} sim {o.sim_wall_s:.2f}"
+          f" s; RaPP cost/1k {a.cost_per_1k:.5f} p95 {a.p95_ms:.1f} ms "
+          f"viol@2x {a.viol_2x:.4f} sim {a.sim_wall_s:.2f} s; invariants "
+          f"{o.invariant_ok} / {a.invariant_ok}; twin "
+          f"{time.perf_counter() - t:.1f} s in all ({derived})")
+    if not (o.invariant_ok and a.invariant_ok):
+        raise AssertionError(f"[rapp] in-loop invariants: oracle "
+                             f"{o.invariant_ok}, RaPP {a.invariant_ok}")
+    card = loop["rapp_model"]
+    host = P.RaPPModel(card.params, seed=seed, device="cpu")
+    spec = FnSpec(ARCHS["qwen2.5-3b"])
+    worst = 0.0
+    for b in (1, 4, 8, 16):
+        on_card = card.predict_lattice(spec, b, D.SMS, D.QUOTAS)
+        on_host = host.predict_lattice(spec, b, D.SMS, D.QUOTAS)
+        worst = max(worst, float(np.max(np.abs(on_card - on_host)
+                                        / np.abs(on_host))))
+    print(f"[rapp] in-loop RaPP predict_lattice, card vs host: qwen2.5-3b "
+          f"at batches 1, 4, 8, 16 x {len(D.SMS)} SMs x {len(D.QUOTAS)} "
+          f"quotas, worst rel {worst:.3g} (tol 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"[rapp] card vs host lattice: rel {worst}")
 
 
 # [launch]: the dry run's cases held against real steps on the card

@@ -6,47 +6,51 @@ The runtime profiles and the tensorization (``op_profile`` onwards) are a
 copy of the reference's numpy code: given the same ``OpGraph`` and the
 same generator they give the same arrays, byte for byte.
 
-The graph comes from the port's own model. ``extract_graph`` runs
-``models.forward`` on shape-only FakeTensors (no weight is allocated, so
-a full-width 34B model traces in seconds) under a ``TorchDispatchMode``
-that records every aten op, as ``jax.make_jaxpr`` records the
-reference's primitives. Each aten op is read as the JAX primitive it
-stands for (``_PRIM``), so the reference's classification (``_classify``)
-and FLOP formulas apply unchanged: products are "dot" with 2 x out x
-contraction FLOPs, a dtype cast is ``convert_element_type`` and lands in
-class "conv" (the reference tests ``"conv" in name`` first), and any op
-the table does not name keeps its own name and lands where the
-reference's rules put it ("other" for most). Views and queries make no
-node (``_Recorder``), so a graph fits ``MAX_NODES`` after ``_coarsen``
-as the reference's does.
+The graph is the reference's: the operator graph ``_walk`` builds from
+the jaxpr of the forward under JAX 0.9, quirks included, so that one
+trained predictor gives the same latencies in both packages.
+``extract_graph`` runs the port's own ``models.forward`` on shape-only
+FakeTensors (no weight is allocated, so a full-width 34B model traces in
+seconds) under ``graph.Recorder``, a ``TorchFunctionMode`` that reads
+each PyTorch call as the ``jax.numpy`` call it ports and records the
+primitives that call stages (see ``graph``): views, reshapes and
+broadcasts are nodes, and the calls JAX 0.9 stages as an opaque ``jit``
+(``var``, ``where``, ``silu``, ...) are single 0-FLOP nodes of class
+"other", because ``_walk`` descends into ``pjit`` and JAX 0.9 names it
+``jit``.
 
-The reference summarises its layer stacks with ``lax.scan``: one walk of
-the scanned body, its features scaled by the trip count. The port keeps
-a list of layers, so the extractor hands the model ``_Stack`` views of
-its layer lists: iterating one walks the unrolled prefix layers inline,
-then one period of ``blocks.stack_pattern`` as a summarised region at
-trips ``n_periods``, and stops. Whisper's encoder and decoder stacks are
-one-layer periods at trips ``encoder_layers`` and ``num_layers``. A
-region follows ``_walk``'s scan rule: a fresh producer map, one edge
-from the producer of each input into its first node, and its outputs
-attributed to its last node.
+Where the port computes a function by other PyTorch calls than the
+reference's ``jax.numpy`` ones (operands widened for the CPU, a
+convolution laid out for cuDNN, a scan unrolled, a one-hot made by a
+scatter), the extractor runs the port's function with the recorder
+quiet and records the reference's sequence of primitives on its inputs
+and outputs instead (``_reference_shaped``): the attention core, the
+causal mask, the norms, the embedding, the MoE layer, the SSD mixer,
+the logits, whisper's cross K/V and position rows.
+
+The reference summarises its layer stacks and its SSD chunk loop with
+``lax.scan``: one walk of the scanned body, its features scaled by the
+trip count. The port keeps a list of layers, so the extractor hands the
+model ``_Stack`` views of its layer lists: iterating one walks the
+unrolled prefix layers inline, then one period of
+``blocks.stack_pattern`` as a summarised region at trips ``n_periods``,
+and stops. Whisper's encoder and decoder stacks are one-layer periods at
+trips ``encoder_layers`` and ``num_layers``. The SSD's chunk loop is a
+region nested in its layer's, at trips ``n_chunks``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Tuple
 
 import numpy as np
 import torch
-from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ArchConfig
 from repro_torch.configs.gpus import DEFAULT_GPU_TYPE, GPUType
+from repro_torch.core.rapp.graph import (N_OP_CLASSES, OP_CLASSES, Lit,
+                                         OpGraph, OpNode, Recorder, V)
 
-OP_CLASSES = ("dot", "conv", "elementwise", "reduce", "gather",
-              "scan", "other")
-N_OP_CLASSES = len(OP_CLASSES)
 SM_PROFILE_POINTS = (1, 2, 3, 4, 6, 8)       # paper: six SM configurations
 QUOTA_PROFILE_POINTS = (0.2, 0.4, 0.6, 0.8, 1.0)  # paper: five quotas
 
@@ -54,254 +58,394 @@ PEAK_FLOPS = DEFAULT_GPU_TYPE.peak_flops
 HBM_BW = DEFAULT_GPU_TYPE.hbm_bw
 N_DEVICE_F = 3   # device descriptor dims in the global feature head
 
-_ELEMENTWISE = {"add", "sub", "mul", "div", "max", "min", "exp", "log",
-                "tanh", "logistic", "rsqrt", "sqrt", "pow", "integer_pow",
-                "neg", "sign", "select_n", "convert_element_type", "custom_jvp_call",
-                "erf", "abs", "floor", "ceil", "round", "clamp", "and", "or",
-                "xor", "not", "cos", "sin", "squeeze", "expand_dims"}
-_REDUCE = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod",
-           "argmax", "argmin", "cumsum", "cumprod", "cumlogsumexp",
-           "reduce_and", "reduce_or", "logsumexp", "reduce_precision"}
-_GATHER = {"gather", "scatter", "scatter-add", "scatter_add", "take",
-           "dynamic_slice", "dynamic_update_slice", "sort", "top_k",
-           "iota", "one_hot", "argsort"}
-
-# aten op (its overload packet's name) -> the JAX primitive it stands for;
-# an op not named here keeps its own name. A fused aten op (``silu``,
-# ``_softmax``) stands for the elementwise primitive that dominates its
-# reference composition.
-_PRIM = {
-    "mm": "dot_general", "bmm": "dot_general", "addmm": "dot_general",
-    "baddbmm": "dot_general", "mv": "dot_general", "dot": "dot_general",
-    "convolution": "conv_general_dilated",
-    "_to_copy": "convert_element_type",
-    "embedding": "gather", "index": "gather", "index_select": "gather",
-    "arange": "iota", "topk": "top_k",
-    "scatter": "scatter", "scatter_add": "scatter-add",
-    "index_put": "scatter",
-    "sum": "reduce_sum", "mean": "reduce_sum", "var": "reduce_sum",
-    "amax": "reduce_max", "amin": "reduce_min",
-    "maximum": "max", "minimum": "min",
-    "where": "select_n", "masked_fill": "select_n",
-    "sigmoid": "logistic", "silu": "logistic", "gelu": "tanh",
-    "_softmax": "exp", "softplus": "log", "rsub": "sub",
-    "reciprocal": "div",
-    "clamp_min": "clamp", "clamp_max": "clamp",
-    "logical_and": "and", "logical_or": "or", "logical_not": "not",
-    "bitwise_and": "and", "bitwise_or": "or", "bitwise_not": "not",
-    "cat": "concatenate", "constant_pad_nd": "pad",
-    "zeros": "broadcast_in_dim", "ones": "broadcast_in_dim",
-    "full": "broadcast_in_dim", "empty": "broadcast_in_dim",
-    "scalar_tensor": "broadcast_in_dim", "new_zeros": "broadcast_in_dim",
-    "clone": "copy", "copy_": "copy",
-}
-# the batched products (an einsum over a stack of experts)
-_BATCHED = {"bmm", "baddbmm"}
-# metadata-only ops the schema does not mark as views (``reshape`` of a
-# fresh product)
-_METADATA = {"_unsafe_view"}
+F32 = torch.float32
 
 
-@dataclasses.dataclass
-class OpNode:
-    op_class: int
-    flops: float
-    bytes_in: float
-    bytes_out: float
-    max_dim: float
-    contraction: float
-    trips: float
-
-
-@dataclasses.dataclass
-class OpGraph:
-    nodes: List[OpNode]
-    edges: List[Tuple[int, int]]
-    total_flops: float
-    total_bytes: float
-    class_counts: np.ndarray  # (N_OP_CLASSES,)
-
-
-def _tensor_bytes(t) -> float:
-    return float(t.numel() * t.element_size())
-
-
-def _classify(prim_name: str) -> int:
-    if prim_name in ("dot_general",):
-        return OP_CLASSES.index("dot")
-    if "conv" in prim_name:
-        return OP_CLASSES.index("conv")
-    if prim_name in ("scan", "while", "fori_loop"):
-        return OP_CLASSES.index("scan")
-    if prim_name in _ELEMENTWISE:
-        return OP_CLASSES.index("elementwise")
-    if prim_name in _REDUCE or prim_name.startswith("reduce"):
-        return OP_CLASSES.index("reduce")
-    if prim_name in _GATHER:
-        return OP_CLASSES.index("gather")
-    return OP_CLASSES.index("other")
-
-
-def _op_flops(prim: str, func_name: str, ins, outs) -> Tuple[float, float]:
-    """(flops, contraction_size) of one aten op, by the reference's
-    ``_eqn_flops`` formulas on the primitive it stands for. ``ins`` and
-    ``outs`` are its tensor arguments and results, in order."""
-    out_elems = sum(float(t.numel()) for t in outs)
-    if prim == "dot_general":
-        lhs = ins[1] if func_name in ("addmm", "baddbmm") else ins[0]
-        contraction = float(lhs.shape[-1]) if lhs.dim() else 1.0
-        return 2.0 * out_elems * contraction, contraction
-    if "conv" in prim:
-        # the reference's rhs[:-1] on its HIO kernel is (width, in/groups):
-        # torch's (out, in/groups, width) weight past its first dim
-        k = (float(np.prod(ins[1].shape[1:])) if func_name == "convolution"
-             else 1.0)
-        return 2.0 * out_elems * k, k
-    if prim in _REDUCE:
-        return sum(float(t.numel()) for t in ins), 1.0
-    if prim in _ELEMENTWISE:
-        return out_elems, 1.0
-    return 0.0, 1.0
-
-
-class _Recorder(TorchDispatchMode):
-    """Records each aten op the traced forward runs as an ``OpNode`` (the
-    counterpart of ``_walk`` over a jaxpr), with an edge from the node
-    that produced each of its tensor inputs.
-
-    Views (``view``, ``permute``, ``t``, ``expand``, ``unsqueeze``, ...)
-    and queries that return no tensor (``prim.device``) make no node: a
-    view's outputs take its input's producer. A JAX ``dot_general``
-    contracts its operands as they are laid out, where aten surrounds
-    its ``mm`` with views, and the weight's ``t`` would be a node with no
-    predecessor, which ``_coarsen`` cannot merge away."""
-
-    def __init__(self):
-        super().__init__()
-        self.nodes: List[OpNode] = []
-        self.edges: List[Tuple[int, int]] = []
-        self.producer = {}   # key of a tensor -> node index
-        self.alias = {}      # id(view) -> key of the tensor it views
-        self.trips = 1.0
-        self._keep = []      # every traced tensor, so no id is reused
-        self._region = None  # (outer producer map, outer trips, first node)
-        self._region_in = set()
-        self._casts = {}     # cast node -> (bytes it read, bytes it wrote)
-        self._uses = {}      # cast node -> the nodes that read its output
-
-    def _key(self, t) -> int:
-        return self.alias.get(id(t), id(t))
-
-    def enter(self, trips: float):
-        """Open a summarised region: a scan body at ``trips``."""
-        assert self._region is None, "regions do not nest"
-        self._region = (self.producer, self.trips, len(self.nodes))
-        self._region_in = set()
-        self.producer, self.trips = {}, self.trips * trips
-
-    def exit(self):
-        outer, self.trips, first = self._region
-        if len(self.nodes) > first:
-            last = len(self.nodes) - 1
-            for key in self.producer:
-                outer[key] = last
-        self.producer, self._region = outer, None
-
-    def _edge_into(self, t, idx: int):
-        """The edge that input ``t`` of node ``idx`` adds, or None."""
-        key = self._key(t)
-        p = self.producer.get(key)
-        if p is not None:
-            return p, idx
-        if self._region is not None:
-            # an input of the region: one edge into its first node
-            outer_p = self._region[0].get(key)
-            if outer_p is not None and key not in self._region_in:
-                self._region_in.add(key)
-                return outer_p, self._region[2]
-        return None
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        outs = [t for t in pytree.tree_leaves(out)
-                if isinstance(t, torch.Tensor)]
-        self._keep.extend(outs)
-        if not outs:
-            return out
-        name = func.overloadpacket.__name__
-        ins = [t for t in pytree.tree_leaves((args, kwargs))
-               if isinstance(t, torch.Tensor)]
-        if func.is_view or name in _METADATA:
-            base = self._key(ins[0])
-            for t in outs:
-                self.alias[id(t)] = base
-            return out
-        prim = _PRIM.get(name, name)
-        flops, contraction = _op_flops(prim, name, ins, outs)
-        dims = [d for t in outs for d in t.shape]
-        idx = len(self.nodes)
-        self.nodes.append(OpNode(
-            op_class=_classify(prim), flops=flops * self.trips,
-            bytes_in=sum(_tensor_bytes(t) for t in ins) * self.trips,
-            bytes_out=sum(_tensor_bytes(t) for t in outs) * self.trips,
-            max_dim=float(max(dims) if dims else 1), contraction=contraction,
-            trips=self.trips))
-        for t in ins:
-            edge = self._edge_into(t, idx)
-            if edge is not None:
-                self.edges.append(edge)
-                if edge[0] in self._casts:
-                    self._uses.setdefault(edge[0], []).append(
-                        (idx, edge[1] == idx and name in _BATCHED))
-        if (prim == "convert_element_type" and len(ins) == len(outs) == 1
-                and self._is_weight(ins[0])):
-            self._casts[idx] = (_tensor_bytes(ins[0]) * self.trips,
-                                _tensor_bytes(outs[0]) * self.trips)
-        for t in outs:
-            self.producer[self._key(t)] = idx
+# ------------------------------------------------ reference-shaped parts
+def _attention_core(rec, orig):
+    """``attention._direct_attention``: the reference scales by a 0-d
+    ``1 / sqrt(hd)`` and contracts the bf16 operands with f32 results
+    where the port widens them first."""
+    def core(q, k, v, bias, stats=False):
+        with rec.quiet():
+            out = orig(q, k, v, bias, stats)
+        r = rec.emit1("sqrt", [Lit(F32)], V((), F32))
+        r = rec.convert(r, F32, weak=True)
+        scale = rec.emit1("div", [Lit(F32), r], V((), F32))
+        s = rec.einsum("bskgd,btkd->bkgst", q, k, out_dtype=F32)
+        s = rec.binary("mul", s, scale)
+        s = rec.binary("add", s, bias)
+        p = rec.convert(rec.softmax(s, -1), v.dtype)
+        rec.einsum("bkgst,btkd->bskgd", p, v, out=out)
         return out
+    return core
 
-    def _is_weight(self, t) -> bool:
-        """Whether no node of the graph made ``t`` (a parameter)."""
-        key = self._key(t)
-        return key not in self.producer and (
-            self._region is None or key not in self._region[0])
 
-    def fold_casts(self):
-        """Fold each cast of a weight that only batched products read into
-        those products: ``kernels.ref.einsum`` widens a bf16 expert stack
-        to f32 before the grouped product, where the reference's
-        ``dot_general`` promotes it inside the product. The cast makes no
-        node and no write, and each product reads the weight at its dtype
-        before the cast; edges into the cast go to its products. (The
-        reference also promotes inside its attention and logits products,
-        whose operands the port widens first; those casts stay nodes.)"""
-        fold = {c for c, uses in self._uses.items()
-                if all(is_dot for _, is_dot in uses)}
-        if not fold:
-            return
-        into = {c: [i for i, _ in self._uses[c]] for c in fold}
-        for c in fold:
-            read, wrote = self._casts[c]
-            for i in into[c]:
-                self.nodes[i].bytes_in += read - wrote
-        edges = []
-        for a, b in self.edges:
-            if a in fold:
-                continue
-            edges.extend((a, i) for i in into[b]) if b in fold \
-                else edges.append((a, b))
-        keep = [i for i in range(len(self.nodes)) if i not in fold]
-        new = {old: n for n, old in enumerate(keep)}
-        self.nodes = [self.nodes[i] for i in keep]
-        self.edges = [(new[a], new[b]) for a, b in edges]
+def _causal_mask(rec, orig):
+    """``common.causal_mask_bias``: ``jnp.where(ok, 0, -inf)`` is weakly
+    typed, so the reference's ``astype(float32)`` is a node."""
+    def mask(q_pos, k_pos, window=0):
+        with rec.quiet():
+            out = orig(q_pos, k_pos, window)
+        kr = list(k_pos.shape)
+        qc = list(q_pos.shape)
+        kb = rec.bcast(k_pos, kr[:-1] + [1, kr[-1]])
+        qb = rec.bcast(q_pos, qc + [1])
+        ok = rec.binary("le", kb, qb)
+        if window:
+            kb = rec.bcast(k_pos, kr[:-1] + [1, kr[-1]])
+            qb = rec.bcast(q_pos, qc + [1])
+            lo = rec.binary("sub", qb, window)
+            ok = rec.binary("and", ok, rec.binary("gt", kb, lo))
+        w = rec.jit([ok, Lit(F32), Lit(F32)], V(ok.shape, F32))
+        rec.convert(w, F32, out=out, weak=True)
+        return out
+    return mask
+
+
+def _logits(rec, orig):
+    """``lm.logits_of``: one bf16 x bf16 -> f32 ``einsum`` (the port
+    reshapes and, on the CPU, widens)."""
+    def logits(h, w):
+        with rec.quiet():
+            out = orig(h, w)
+        rec.einsum("bsd,dv->bsv", h, w, out=out, out_dtype=F32)
+        return out
+    return logits
+
+
+def _encdec_logits(rec, orig):
+    """``encdec._logits``: the reference contracts the table as it is
+    stored, (V, d), with no transpose."""
+    def logits(params, h, opts):
+        with rec.quiet():
+            out = orig(params, h, opts)
+        rec.einsum("bsd,vd->bsv", h, params["embed"], out=out, out_dtype=F32)
+        return out
+    return logits
+
+
+def _rows(rec, orig):
+    """``encdec._rows``: the reference gathers the rows (XLA clamps)."""
+    def rows(table, positions):
+        with rec.quiet():
+            out = orig(table, positions)
+        rec.take(table, positions, out)
+        return out
+    return rows
+
+
+def _cross_kv(rec, orig):
+    """``encdec.encode_cross_kv``: the reference ``vmap``s the decoder
+    layers' K/V projections over their stacked weights: one product
+    each for all layers, its layer axis moved to the front where the
+    bias is added."""
+    def cross_kv(params, cfg, enc_out):
+        with rec.quiet():
+            ck, cv = orig(params, cfg, enc_out)
+        layers = params["decoder"]
+        lp = list.__getitem__(layers, 0)["xattn"]
+        L = len(layers)
+        B, T, _ = enc_out.shape
+        prods = []
+        for name in ("wk", "wv"):
+            w = V((L,) + tuple(lp[name].shape), lp[name].dtype)
+            prods.append(rec.dot(enc_out, w, enc_out.shape[-1],
+                                 (B, T, L, w.shape[-1]), enc_out.dtype))
+        outs = []
+        for o, bias in zip(prods, ("bk", "bv")):
+            if cfg.qkv_bias:
+                b = V((L,) + tuple(lp[bias].shape), lp[bias].dtype)
+                b = rec.bcast(b, (L, 1, 1, b.shape[-1]))
+                o = rec.binary("add", rec.transpose(o, (2, 0, 1, 3)), b)
+            else:
+                o = rec.transpose(o, (2, 0, 1, 3))
+            outs.append(o)
+        for o, res in zip(outs, (ck, cv)):
+            rec.reshape(o, res.shape, out=res)
+            rec.stacked.add(rec.key(res))
+        return ck, cv
+    return cross_kv
+
+
+def _embed(rec, orig):
+    """``lm._embed``: gemma's ``sqrt(d_model)`` is a 0-d ``sqrt`` (and a
+    weak-to-strong cast) in the reference."""
+    def embed(cfg, p, tokens, positions, visual_embeds=None):
+        with rec.quiet():
+            out = orig(cfg, p, tokens, positions, visual_embeds)
+        h = rec.take(p["embed"], tokens)
+        if cfg.name.startswith("gemma"):
+            hf = rec.convert(h, F32)
+            r = rec.convert(rec.emit1("sqrt", [Lit(F32)], V((), F32)), F32,
+                            weak=True)
+            h = rec.convert(rec.binary("mul", hf, r), p["embed"].dtype)
+        if visual_embeds is not None:
+            ve = rec.binary("mul", rec.convert(visual_embeds, F32),
+                            p["visual_scale"])
+            h = rec.concat([rec.convert(ve, h.dtype), h], V(
+                (h.shape[0], ve.shape[1] + h.shape[1], h.shape[2]), h.dtype))
+        if cfg.pos_emb == "learned":
+            h = rec.binary("add", h, rec.take(p["pos"], positions))
+        return rec.same(out, h)
+    return embed
+
+
+def _moe(rec, orig):
+    """``ffn.moe_ffn``: the reference's routing (``one_hot``s where the
+    port scatters and compares) and its einsums over the bf16 expert
+    stacks, which promote inside the product."""
+    from repro_torch.models import ffn
+
+    def moe(cfg, p, x, *, capacity_factor=1.25, use_kernels=False,
+            single_group=False):
+        with rec.quiet():
+            out, aux = orig(cfg, p, x, capacity_factor=capacity_factor,
+                            use_kernels=use_kernels,
+                            single_group=single_group)
+        m = cfg.moe
+        B, S, d = x.shape
+        E, k = m.num_experts, m.experts_per_token
+        C = ffn.capacity(cfg, S, capacity_factor)
+        xd = x.dtype
+        logits = rec.einsum("gtd,de->gte", rec.convert(x, F32), p["router"])
+        # _route
+        probs = rec.softmax(logits, -1)
+        top_w, top_i = rec.emit("top_k", [probs],
+                                [V((B, S, k), F32), V((B, S, k), torch.int32)])
+        den = rec.reduce("reduce_sum", top_w, [-1], keepdims=True)
+        top_w = rec.binary("div", top_w, rec.binary("max", den, 1e-9))
+        rec.full((B, S, E), F32)                      # jnp.zeros_like
+        oh = rec.jit([top_i], V((B, S, k, E), F32))   # jax.nn.one_hot
+        weights = rec.reduce("reduce_sum", rec.binary(
+            "mul", oh, rec.bcast(top_w, (B, S, k, 1))), [-2])
+        mask = rec.convert(rec.binary("gt", weights, 0), F32)
+        pos = rec.jit([mask], V((B, S, E), F32))      # jnp.cumsum
+        pos = rec.binary("sub", rec.binary("mul", pos, mask), mask)
+        keep = rec.binary("mul", rec.convert(rec.binary("lt", pos, C), F32),
+                          mask)
+        idx = rec.convert(pos, torch.int32)
+        dispatch = rec.jit([idx], V((B, S, E, C), xd))   # one_hot
+        dispatch = rec.binary("mul", dispatch,
+                              rec.bcast(keep, (B, S, E, 1)))
+        combine = rec.binary("mul", rec.convert(dispatch, F32),
+                             rec.bcast(weights, (B, S, E, 1)))
+        xe = rec.einsum("gtec,gtd->gecd", dispatch, x)
+        act = _act(rec, cfg.act)
+        h = act(rec.einsum("gecd,edf->gecf", xe, p["w_gate"]))
+        h = rec.binary("mul", h, rec.einsum("gecd,edf->gecf", xe, p["w_up"]))
+        ye = rec.einsum("gecf,efd->gecd", h, p["w_down"])
+        y = rec.einsum("gtec,gecd->gtd", rec.convert(combine, xd), ye)
+        if m.num_shared_experts:
+            y = rec.binary("add", y, _dense_ffn(rec, cfg, p["shared"], x))
+        ft = rec.mean(mask, [1])
+        fp = rec.mean(probs, [1])
+        a = rec.reduce("reduce_sum", rec.binary("mul", ft, fp), [-1])
+        a = rec.mean(a, [0])
+        rec.binary("mul", E, a, out=aux)
+        rec.convert(y, xd, out=out)
+        return out, aux
+    return moe
+
+
+def _norm(rec, orig):
+    """``common.apply_norm``: the reference's sequence, so that the port's
+    order of operations stays free."""
+    def apply_norm(cfg, p, x, eps=1e-5):
+        with rec.quiet():
+            out = orig(cfg, p, x, eps)
+        h = rec.convert(x, F32)
+        if cfg.norm == "rmsnorm":
+            ms = rec.mean(rec.binary("mul", h, h), [-1], keepdims=True)
+            h = rec.binary("mul", h, rec.unary(
+                "rsqrt", rec.binary("add", ms, eps)))
+            h = rec.binary("mul", h, p["scale"])
+        else:  # layernorm / nonparametric_ln
+            mu = rec.mean(h, [-1], keepdims=True)
+            h_mu = rec.binary("sub", h, mu)
+            var = rec.jit([h, Lit(F32)], V(mu.shape, F32))   # jnp.var
+            h = rec.binary("mul", h_mu, rec.unary(
+                "rsqrt", rec.binary("add", var, eps)))
+            if cfg.norm == "layernorm":
+                h = rec.binary("add", rec.binary("mul", h, p["scale"]),
+                               p["bias"])
+        rec.convert(h, x.dtype, out=out)
+        return out
+    return apply_norm
+
+
+def _act(rec, name):
+    if name == "silu":
+        return lambda t: rec.jit([t], V(t.shape, t.dtype))
+    return rec.gelu_tanh
+
+
+def _dense_ffn(rec, cfg, p, x):
+    """The reference's ``dense_ffn`` of the gated kind."""
+    act = _act(rec, cfg.act)
+    g = act(rec.matmul(x, p["w_gate"]))
+    u = rec.matmul(x, p["w_up"])
+    return rec.matmul(rec.binary("mul", g, u), p["w_down"])
+
+
+def _ssd(rec, orig):
+    """``ssm.ssd_forward``: the reference's mixer, its chunk loop a
+    ``lax.scan`` (the port lays the convolution out for cuDNN, reads B
+    and C by group and unrolls the chunks)."""
+    from repro_torch.models import ssm
+
+    def ssd_forward(cfg, p, x, *, initial_state=None, return_state=False,
+                    use_kernels=False):
+        with rec.quiet():
+            out = orig(cfg, p, x, initial_state=initial_state,
+                       return_state=return_state, use_kernels=use_kernels)
+        s = cfg.ssm
+        di, nh, conv_ch = ssm.ssm_dims(cfg)
+        hpg = nh // s.n_groups
+        B_, S, _ = x.shape
+        Q = min(s.chunk_size, S)
+        nc = S // Q
+        gn = s.n_groups * s.d_state
+        dt_ = x.dtype
+        W = s.conv_width
+        proj = rec.matmul(x, p["in_proj"])
+        z, xs, Bm, Cm, dt_raw = rec.split(proj, [
+            V((B_, S, w), dt_) for w in (di, di, gn, gn, nh)])
+        xbc_raw = rec.concat([xs, Bm, Cm], V((B_, S, conv_ch), dt_))
+        pad = rec.jit([xbc_raw, Lit(torch.int32)],
+                      V((B_, S + max(W - 1 - S, 0), conv_ch), dt_))
+        rec.emit1("slice", [pad], V((B_, W - 1, conv_ch), dt_))
+        # _causal_conv
+        pad = rec.jit([xbc_raw, Lit(torch.int32)],
+                      V((B_, S + W - 1, conv_ch), dt_))
+        w = rec.bcast(p["conv_w"], (W, 1, conv_ch))
+        w = rec.convert(w, dt_)
+        c = rec.emit1("conv_general_dilated", [pad, w], V((B_, S, conv_ch),
+                                                          dt_))
+        c = rec.binary("add", c, rec.convert(p["conv_b"], dt_))
+        xbc = rec.jit([c], V(c.shape, dt_))
+        xs, Bm, Cm = rec.split(xbc, [V((B_, S, w), dt_)
+                                     for w in (di, gn, gn)])
+        xh = rec.reshape(xs, (B_, S, nh, s.head_dim))
+        Bg = rec.reshape(Bm, (B_, S, s.n_groups, s.d_state))
+        Cg = rec.reshape(Cm, (B_, S, s.n_groups, s.d_state))
+        dt = rec.binary("add", rec.convert(dt_raw, F32), p["dt_bias"])
+        dt = rec.jit([dt], V(dt.shape, F32))                # softplus
+        A = rec.unary("neg", rec.unary("exp", p["A_log"]))
+        dA = rec.binary("mul", dt, A)
+
+        def chunked(t):
+            r = rec.reshape(t, (B_, nc, Q) + tuple(t.shape[2:]))
+            return rec.transpose(r, (1, 0) + tuple(range(2, len(r.shape))))
+        xc, Bc, Cc = chunked(xh), chunked(Bg), chunked(Cg)
+        dtc, dAc = chunked(dt), chunked(dA)
+
+        def heads(t):
+            shp = list(t.shape)
+            b = rec.bcast(t, shp[:4] + [hpg] + shp[4:])
+            return rec.reshape(b, (nc, B_, Q, nh, s.d_state))
+        Bc, Cc = heads(Bc), heads(Cc)
+        h0 = rec.full((B_, nh, s.head_dim, s.d_state), F32)
+        rec.enter(nc, operands=[h0, xc, Bc, Cc, dtc, dAc])
+        x_i = V(xc.shape[1:], xc.dtype)
+        B_i = V(Bc.shape[1:], Bc.dtype)
+        C_i = V(Cc.shape[1:], Cc.dtype)
+        dt_i = V(dtc.shape[1:], F32)
+        dA_i = V(dAc.shape[1:], F32)
+        h = V(h0.shape, F32)
+        cum = rec.jit([dA_i], V(dA_i.shape, F32))            # cumsum
+        total = rec.index_int(cum, 1)
+        cb = rec.einsum("bihn,bjhn->bhij", rec.convert(C_i, F32),
+                        rec.convert(B_i, F32))
+        ct = rec.transpose(cum, (0, 2, 1))
+        li = rec.bcast(ct, ct.shape + (1,))
+        ct = rec.transpose(cum, (0, 2, 1))
+        lj = rec.bcast(ct, ct.shape[:2] + (1,) + ct.shape[2:])
+        tri = rec.jit([rec.full((Q, Q), torch.bool)], V((Q, Q), torch.bool))
+        diff = rec.jit([tri, rec.binary("sub", li, lj), Lit(F32)],
+                       V(cb.shape, F32))                     # where
+        scores = rec.binary("mul", cb, rec.unary("exp", diff))
+        dtt = rec.transpose(dt_i, (0, 2, 1))
+        scores = rec.binary("mul", scores, rec.bcast(
+            dtt, dtt.shape[:2] + (1,) + dtt.shape[2:]))
+        y_intra = rec.einsum("bhij,bjhp->bihp", scores,
+                             rec.convert(x_i, F32))
+        ce = rec.binary("mul", rec.convert(C_i, F32), rec.bcast(
+            rec.unary("exp", cum), cum.shape + (1,)))
+        y_inter = rec.einsum("bihn,bhpn->bihp", ce, h)
+        tb = rec.bcast(total, (total.shape[0], 1, total.shape[1]))
+        wgt = rec.binary("mul", dt_i, rec.unary("exp",
+                                                rec.binary("sub", tb, cum)))
+        xw = rec.binary("mul", rec.convert(x_i, F32),
+                        rec.bcast(wgt, wgt.shape + (1,)))
+        dstate = rec.einsum("bjhp,bjhn->bhpn", xw, rec.convert(B_i, F32))
+        et = rec.unary("exp", total)
+        hn = rec.binary("mul", rec.bcast(et, et.shape + (1, 1)), h)
+        rec.binary("add", hn, dstate)
+        rec.binary("add", y_intra, y_inter)
+        rec.exit()
+        yc = V((nc, B_, Q, nh, s.head_dim), F32)
+        rec.producer[rec.key(yc)] = len(rec.nodes) - 1
+        y = rec.transpose(yc, (1, 0, 2, 3, 4))
+        y = rec.reshape(y, (B_, S, nh, s.head_dim))
+        D = rec.bcast(p["D"], (1, 1, nh, 1))
+        y = rec.binary("add", y, rec.binary("mul", D, rec.convert(xh, F32)))
+        y = rec.reshape(y, (B_, S, di))
+        # _gated_norm
+        y = rec.binary("mul", y, rec.jit([rec.convert(z, F32)],
+                                         V(z.shape, F32)))
+        ms = rec.mean(rec.binary("mul", y, y), [-1], keepdims=True)
+        y = rec.binary("mul", y, rec.unary("rsqrt",
+                                           rec.binary("add", ms, 1e-5)))
+        y = rec.binary("mul", y, p["norm_scale"])
+        rec.matmul(rec.convert(y, dt_), p["out_proj"], out=out)
+        return out
+    return ssd_forward
+
+
+def _reference_shaped(rec):
+    """(module, name, replacement) for each composite the extractor
+    records as the reference's sequence."""
+    from repro_torch.models import attention, common, encdec, ffn, lm, ssm
+    return [(attention, "_direct_attention", _attention_core),
+            (lm, "_embed", _embed),
+            (common, "causal_mask_bias", _causal_mask),
+            (common, "apply_norm", _norm),
+            (lm, "logits_of", _logits),
+            (encdec, "_logits", _encdec_logits),
+            (encdec, "_rows", _rows),
+            (encdec, "encode_cross_kv", _cross_kv),
+            (ffn, "moe_ffn", _moe),
+            (ssm, "ssd_forward", _ssd)]
+
+
+def _unless_quiet(rec, orig, shaped):
+    """``shaped`` where the recorder listens, else ``orig`` (a composite
+    called inside another one the extractor records itself)."""
+    def call(*args, **kwargs):
+        return (orig if rec.silent else shaped)(*args, **kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def _patched(rec):
+    saved = []
+    try:
+        for mod, name, make in _reference_shaped(rec):
+            orig = getattr(mod, name)
+            saved.append((mod, name, orig))
+            setattr(mod, name, _unless_quiet(rec, orig, make(rec, orig)))
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
 
 
 class _Stack(list):
     """A layer list whose iteration walks ``prefix`` layers inline, then
     ``period`` layers as one region at ``trips``, and stops there."""
 
-    def __init__(self, layers, rec: _Recorder, prefix: int, period: int,
+    def __init__(self, layers, rec: Recorder, prefix: int, period: int,
                  trips: float):
         super().__init__(layers)
         self.rec, self.prefix, self.period, self.trips = (rec, prefix,
@@ -309,6 +453,9 @@ class _Stack(list):
 
     def __iter__(self):
         items = list.__iter__(self)
+        if self.rec.silent:      # a composite the extractor records itself
+            yield from items
+            return
         for _ in range(self.prefix):
             yield next(items)
         self.rec.enter(self.trips)
@@ -319,7 +466,7 @@ class _Stack(list):
             self.rec.exit()
 
 
-def _shape_only_params(cfg: ArchConfig, rec: _Recorder):
+def _shape_only_params(cfg: ArchConfig, rec: Recorder):
     """The model's params as FakeTensors (shapes and dtypes only), with
     ``_Stack`` views for the layer lists."""
     from repro_torch import models
@@ -343,7 +490,7 @@ def extract_graph(cfg: ArchConfig, batch: int, seq: int = 128) -> OpGraph:
     from repro_torch import models
     from repro_torch.models import CallOpts
 
-    rec = _Recorder()
+    rec = Recorder()
     with FakeTensorMode(), torch.no_grad():
         params = _shape_only_params(cfg, rec)
         b = {"tokens": torch.zeros((batch, seq), dtype=torch.int32)}
@@ -354,9 +501,8 @@ def extract_graph(cfg: ArchConfig, batch: int, seq: int = 128) -> OpGraph:
             v = min(cfg.num_visual_tokens, 64)
             b["visual_embeds"] = torch.zeros((batch, v, cfg.d_model),
                                              dtype=torch.bfloat16)
-        with rec:
+        with _patched(rec), rec:
             models.forward(params, cfg, b, CallOpts(attn_chunk=1 << 30))
-    rec.fold_casts()
     nodes, edges = rec.nodes, rec.edges
     counts = np.zeros(N_OP_CLASSES)
     for n in nodes:
