@@ -136,8 +136,18 @@ deepseek's 16 heads of 128 with one query head a KV head.
    golden case (each scenario of ``repro_torch.workloads.scenarios`` under
    ``has``, ``steady_poisson`` also under ``kserve`` and ``fast``; seed
    42, 45 s) run by the port and held to ``tests/goldens/`` by the port's
-   ``RunMetrics.load``/``diff`` (rel 1e-6, abs 1e-9). (b) The
-   ``serve_autoscale`` twin's part 2: HAS-GPU, KServe-like and
+   ``RunMetrics.load``/``diff`` (rel 1e-6, abs 1e-9). Then the port's
+   event engine against the port's frozen scalar engine
+   (``repro_torch.core.engine_scalar``), with no JAX on the host: the six
+   seeded cases of ``tests/test_torch_engine_parity.py`` in the wide
+   engine and with its batched decide path off, each ``to_json()`` byte
+   for byte the scalar engine's; the case where the wide engine departs
+   (the per-function loop equal to the scalar engine, the wide engine's
+   hup actions, cold starts, chip failures and cost the pinned 7, 7, 8,
+   $0.08598 against 8, 8, 9, $0.09877); and one tick-against-event run
+   (``repro_torch.core.simulator_tick``: olmo-1b under ``has``, 30 s at
+   15 rps, seed 11) within ``tests/test_event_parity.py``'s tolerances.
+   (b) The ``serve_autoscale`` twin's part 2: HAS-GPU, KServe-like and
    FaST-GShare-like over ``standard_workload(120 s, 25 rps, seed 11)``.
    (c) Its part 1 on the card: full-width qwen2.5-3b (random bf16 weights
    from ``--seed``) on one h100 vGPU pod (sm 4, batch 4, ``max_seq`` 64),
@@ -231,10 +241,12 @@ deepseek's 16 heads of 128 with one query head a KV head.
    reference's own test combo), ``python -m repro_torch.launch.train
    --arch olmo-1b --shape train_4k --dry-run --multi-pod`` and ``python
    -m repro_torch.launch.dryrun --arch llava-next-34b --shape
-   prefill_32k --single-pod-only``; each must exit 0 and plan each mesh's
+   prefill_32k --single-pod-only`` and ``--arch deepseek-moe-16b --shape
+   long_500k --single-pod-only``; each must exit 0, report no fallback
+   (an op DTensor could not shard as it came), and plan each mesh's
    FLOPs a device within its band (``LAUNCH_MESH_RUNS``: olmo's plans at
-   the reference's count, llava's within 1.10x of it). Records go to
-   ``chiprun_out/launch/``.
+   the reference's count, llava's within 1.10x of it, deepseek's within
+   1.02x). Records go to ``chiprun_out/launch/``.
 
 The line before the last is the kernels record as JSON (each kernel's
 launches summed over every served phase, the calibrate phase, part 1
@@ -1845,6 +1857,87 @@ def check_goldens():
     return cases, took
 
 
+TICK_ARCH, TICK_S = "olmo-1b", 0.02       # the tick-against-event run
+TICK_DURATION_S, TICK_RPS, TICK_SEED = 30.0, 15.0, 11
+
+
+def check_engines():
+    """The port's wide engine, and the same with its batched decide path
+    off, against the port's frozen scalar engine on the seeded cases of
+    ``tests/test_torch_engine_parity.py`` (byte for byte); the known
+    departure of the wide engine pinned; one tick-against-event run
+    within ``tests/test_event_parity.py``'s tolerances. Returns (cases
+    held, s)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_engine_parity as tep
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import (ClusterSimulator, FnSpec, HybridAutoScaler,
+                                  Reconfigurator, SimConfig,
+                                  TickClusterSimulator)
+    from repro_torch.workloads import TraceConfig, arrivals
+
+    t = time.perf_counter()
+    port = tep.package("repro_torch")
+    for case in tep.FALLBACK_CASES:
+        scalar = tep.run_case(port, case, "scalar").to_json()
+        for arm in ("wide", "nobatch"):
+            if tep.run_case(port, case, arm).to_json() != scalar:
+                raise AssertionError(f"[autoscale] {tep.case_id(case)}: the "
+                                     f"{arm} engine departs from the "
+                                     f"scalar engine")
+    runs = {arm: tep.run_case(port, tep.KNOWN_CASE, arm)
+            for arm in ("wide", "nobatch", "scalar")}
+    seen = {arm: tep.departure(m) for arm, m in runs.items()}
+    if (runs["nobatch"].to_json() != runs["scalar"].to_json()
+            or seen["wide"] != tep.KNOWN_DEPARTURE["wide"]
+            or seen["scalar"] != tep.KNOWN_DEPARTURE["scalar"]):
+        raise AssertionError(f"[autoscale] the known departure: {seen}, want "
+                             f"{tep.KNOWN_DEPARTURE} and nobatch == scalar")
+    took = time.perf_counter() - t
+    print(f"[autoscale] the port's engine against its scalar engine: "
+          f"{len(tep.FALLBACK_CASES)} seeded cases x (wide, nobatch) byte "
+          f"for byte equal; the known departure {tep.case_id(tep.KNOWN_CASE)}"
+          f" (hup, cold starts, chip failures, $): wide {seen['wide']}, "
+          f"scalar {seen['scalar']}, nobatch == scalar; host {took:.2f} s")
+
+    t = time.perf_counter()
+    spec = FnSpec(ARCHS[TICK_ARCH])
+    trace = arrivals(TraceConfig(duration_s=TICK_DURATION_S,
+                                 base_rps=TICK_RPS, seed=TICK_SEED))
+    res = {}
+    for name, cls in (("tick", TickClusterSimulator),
+                      ("event", ClusterSimulator)):
+        recon = Reconfigurator(num_gpus=0, max_gpus=32)
+        pol = HybridAutoScaler(recon)
+        pol.prewarm(spec, TICK_RPS)
+        res[name] = cls(spec, pol, recon, trace, SimConfig(
+            duration_s=TICK_DURATION_S, tick_s=TICK_S)).run()
+    tick, ev = res["tick"], res["event"]
+    ok = (all(r.n_arrived == r.n_completed + r.n_dropped == len(trace)
+              for r in (tick, ev))
+          and ev.n_completed == tick.n_completed
+          and ev.n_dropped == tick.n_dropped
+          and abs(ev.cost_usd - tick.cost_usd) <= 0.25 * abs(tick.cost_usd)
+          and abs(ev.pcts["p50"] - tick.pcts["p50"])
+          <= max(3 * TICK_S, 0.5 * tick.pcts["p50"])
+          and abs(ev.pcts["p99"] - tick.pcts["p99"])
+          <= max(5 * TICK_S, 0.5 * tick.pcts["p99"]))
+    tick_s = time.perf_counter() - t
+    print(f"[autoscale] tick against event ({TICK_ARCH}, has, "
+          f"{TICK_DURATION_S:.0f} s at {TICK_RPS:.0f} rps, seed {TICK_SEED}):"
+          f" {len(trace)} arrivals, completed {tick.n_completed} / "
+          f"{ev.n_completed}, dropped {tick.n_dropped} / {ev.n_dropped}, "
+          f"cost ${tick.cost_usd:.5f} / ${ev.cost_usd:.5f}, p50 "
+          f"{tick.pcts['p50'] * 1e3:.2f} / {ev.pcts['p50'] * 1e3:.2f} ms, "
+          f"p99 {tick.pcts['p99'] * 1e3:.2f} / {ev.pcts['p99'] * 1e3:.2f} ms;"
+          f" host {tick_s:.2f} s")
+    if not ok:
+        raise AssertionError("[autoscale] the tick engine and the event "
+                             "engine disagree beyond test_event_parity.py's "
+                             "tolerances")
+    return 2 * len(tep.FALLBACK_CASES) + 2, took + tick_s
+
+
 def phase_autoscale(seed):
     """[autoscale]: the golden corpus on the host, the serve_autoscale
     twin's part 2 and its part 1 on the card (see the module docstring).
@@ -1862,6 +1955,7 @@ def phase_autoscale(seed):
     print(f"[autoscale] the port reproduced all {len(cases)} golden cases "
           f"(seed {GOLDEN_SEED}, {GOLDEN_DURATION_S:.0f} s each; rel "
           f"{GOLDEN_REL}, abs {GOLDEN_ABS}) on the host in {took:.2f} s")
+    check_engines()
 
     t = time.perf_counter()
     comparison = serve_autoscale.part2()
@@ -2468,8 +2562,10 @@ LAUNCH_PEAK_FACTOR = 2.0   # predicted peak within this factor either way
 # plans: the dry run's records are held to it exactly; the train
 # launcher prints four digits, so its band ends at the printed digit
 # rounded up. llava-next-34b's prefill (56 query heads on 16 devices,
-# its query sequence sharded) is held within 1.10x.
+# its query sequence sharded) is held within 1.10x, deepseek-moe-16b's
+# batch-one decode within 1.02x.
 LLAVA_PREFILL_FLOPS = 505088268697600.0   # the reference's, 16x16
+DEEPSEEK_LONG_FLOPS = 134078464.0         # the reference's, 16x16
 LAUNCH_MESH_RUNS = (
     (("repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape",
       "decode_32k"),
@@ -2481,6 +2577,9 @@ LAUNCH_MESH_RUNS = (
     (("repro_torch.launch.dryrun", "--arch", "llava-next-34b", "--shape",
       "prefill_32k", "--single-pod-only"),
      {"16x16": (LLAVA_PREFILL_FLOPS, 1.10 * LLAVA_PREFILL_FLOPS)}),
+    (("repro_torch.launch.dryrun", "--arch", "deepseek-moe-16b", "--shape",
+      "long_500k", "--single-pod-only"),
+     {"16x16": (DEEPSEEK_LONG_FLOPS, 1.02 * DEEPSEEK_LONG_FLOPS)}),
 )
 
 
@@ -2602,8 +2701,9 @@ def check_dry_run_on_card(arch, shape_name, batch, seed):
 def check_mesh_runs(out_dir):
     """``LAUNCH_MESH_RUNS``, all started at once on the host's cores with
     the card hidden, each writing to its own log (a pipe left unread
-    would stall it); each must exit 0 (the dry run with its pass line)
-    and plan each mesh's FLOPs a device within its band. Every process
+    would stall it); each must exit 0 (the dry run with its pass line),
+    report no fallback (its records' ``fallbacks``, the train launcher's
+    plan line) and plan each mesh's FLOPs a device within its band. Every process
     is killed if one fails or the wait raises."""
     import re
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -2639,10 +2739,15 @@ def check_mesh_runs(out_dir):
                 flops = plans.get(mesh)
                 rec = os.path.join(out_dir, "dryrun",
                                    f"{cmd[2]}__{cmd[4]}__{mesh}.json")
+                fallbacks = "fallbacks" in text
                 if cmd[0].endswith("dryrun"):   # its record: all digits
                     with open(rec) as f:
-                        flops = json.load(f)["hlo_analysis_per_device"][
-                            "flops"]
+                        record = json.load(f)
+                    flops = record["hlo_analysis_per_device"]["flops"]
+                    fallbacks = record["fallbacks"]
+                if fallbacks:
+                    raise AssertionError(f"[launch] {cmd[2]} x {cmd[4]} on "
+                                         f"{mesh}: fallbacks {fallbacks}")
                 if flops is None:
                     raise AssertionError(f"[launch] {' '.join(cmd)}: no "
                                          f"plan on {mesh}")

@@ -31,6 +31,7 @@ from repro_torch.core.events import EventEngine, FunctionState
 from repro_torch.core.reconfigurator import Reconfigurator
 from repro_torch.core.scheduler import FleetPlacer
 from repro_torch.core.simulator import ClusterSimulator, SimConfig, SimResult
+from repro_torch.core.simulator_tick import TickClusterSimulator
 from repro_torch.core.vgpu import (DEFAULT_WINDOW_MS, TOTAL_SLICES, Partition,
                                    PodAlloc, VirtualGPU)
 
@@ -45,7 +46,7 @@ __all__ = [
     "FnSpec", "cost_rate", "exec_time", "latency", "most_efficient_config",
     "slo_baseline", "throughput",
     "Reconfigurator", "ClusterSimulator", "SimConfig", "SimResult",
-    "EventEngine", "FunctionState",
+    "EventEngine", "FunctionState", "TickClusterSimulator",
     "DEFAULT_WINDOW_MS", "TOTAL_SLICES", "Partition", "PodAlloc",
     "VirtualGPU",
     "GPUType", "GPU_TYPES", "DEFAULT_GPU_TYPE", "get_gpu_type",

@@ -33,7 +33,8 @@ def dense_ffn(cfg, p, x):
     act = common.activation(cfg.act)
     if cfg.act == "gelu_plain":
         return act(x @ p["w_in"] + p["b_in"]) @ p["w_out"] + p["b_out"]
-    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    hidden = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    return sharding.summed(hidden) @ p["w_down"]
 
 
 # ------------------------------------------------------------------ MoE
@@ -95,7 +96,9 @@ def moe_ffn(cfg, p, x, *, capacity_factor: float = 1.25, use_kernels=False,
         B, S = 1, B
     C = capacity(cfg, S, capacity_factor)
 
-    logits = torch.einsum("gtd,de->gte", x.float(), p["router"])
+    router = sharding.router_like(p["router"], x, p["w_gate"])
+    logits = sharding.pinned(torch.einsum(
+        "gtd,de->gte", sharding.features_over_fsdp(x.float()), router))
     weights, probs = _route(cfg, logits)  # (G,T,E)
     mask = (weights > 0).float()
     # position of each token within its expert's capacity buffer
@@ -115,15 +118,22 @@ def moe_ffn(cfg, p, x, *, capacity_factor: float = 1.25, use_kernels=False,
     else:
         ye = ref.expert_ffn_ref(xe, p["w_gate"], p["w_up"], p["w_down"],
                                 cfg.act)
-    y = ref.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye)
-
-    if cfg.moe.num_shared_experts:
-        y = y + dense_ffn(cfg, p["shared"], x)
+    shared = (dense_ffn(cfg, p["shared"], x) if cfg.moe.num_shared_experts
+              else None)
 
     # Switch-style load-balance aux loss
     frac_tokens = mask.mean(dim=1)          # (G,E) fraction routed
     frac_probs = probs.mean(dim=1)          # (G,E) mean router prob
     aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
+
+    # the combine last: nothing after it saves a tensor for the backward,
+    # so a checkpointed block's recompute stops before it (early stop), as
+    # XLA's remat leaves out a product whose output no gradient reads
+    y = sharding.combine_on_shards(
+        lambda c, e: ref.einsum("gtec,gecd->gtd", c, e),
+        combine.to(x.dtype), ye)
+    if shared is not None:
+        y = y + shared
     out = y.to(x.dtype)
     if orig_shape is not None:
         out = out.reshape(orig_shape)

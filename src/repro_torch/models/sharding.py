@@ -75,14 +75,18 @@ def constrain(t, spec):
     leave ``t`` as it is."""
     if spec is None or not is_dtensor(t):
         return t
-    return _pinned(t.redistribute(t.device_mesh,
+    return pinned(t.redistribute(t.device_mesh,
                                   to_placements(spec, t.device_mesh)))
 
 
-def _pinned(t):
-    """``t``, its gradient in a backward redistributed to its placements
-    (where autograd records one)."""
-    if torch.is_grad_enabled() and t.requires_grad:
+def pinned(t):
+    """A DTensor whose gradient in a backward is redistributed to its own
+    placements (where autograd records one), as the cotangent of a value
+    XLA propagates a sharding to takes that sharding (the MoE router's
+    logits: their gradient reaches them from the expert-sharded combine
+    with the tokens strided over "model", which DTensor cannot contract
+    against the router); anything else as it is."""
+    if is_dtensor(t) and torch.is_grad_enabled() and t.requires_grad:
         return _Pinned.apply(t)
     return t
 
@@ -103,7 +107,42 @@ def reduce_partial(t):
              for i, p in enumerate(t.placements)]
     if place != list(t.placements):
         t = t.redistribute(t.device_mesh, place)
-    return _pinned(t)
+    return pinned(t)
+
+
+def summed(t):
+    """A DTensor with its partial placements all-reduced to replicated
+    ones, anything else as it is: the sums XLA reduces before a
+    row-parallel product reads its input (a batch of one, whose weights
+    stay sharded over ``FSDP`` and leave the hidden's partial sums
+    there). DTensor would instead gather the product's weight over that
+    mesh dim and compute n times the rows."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    place = [Replicate() if p.is_partial() else p for p in t.placements]
+    if place == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, place)
+
+
+def features_over_fsdp(x):
+    """A DTensor ``x`` whose batch is whole over the ``FSDP`` mesh dim (a
+    batch of one) and which is replicated there, with its last dim
+    sharded over it (a local slice, no collective): the placement XLA
+    keeps for a batch-one residual stream's features, so a product that
+    contracts them against a replicated weight (the MoE router) computes
+    1/n of it and all-reduces its partial sums. Anything else as it is."""
+    if not is_dtensor(x) or FSDP not in (x.device_mesh.mesh_dim_names or ()):
+        return x
+    i = x.device_mesh.mesh_dim_names.index(FSDP)
+    if (not x.placements[i].is_replicate() or _mesh_dims(x, -1)
+            or x.shape[-1] % x.device_mesh.size(i)):
+        return x
+    from torch.distributed.tensor import Shard
+    place = list(x.placements)
+    place[i] = Shard(x.dim() - 1)
+    return x.redistribute(x.device_mesh, place)
 
 
 def gather_fsdp(tree, skip=(), like=None):
@@ -538,6 +577,75 @@ def experts_like(dispatch, w):
     return dispatch.redistribute(dispatch.device_mesh, place)
 
 
+def combine_on_shards(combine_fn, combine, ye):
+    """``combine_fn(combine, ye)``, the MoE combine of ``combine``
+    (G,T,E,C) and the experts' outputs ``ye`` (G,E,C,d). A DTensor ``ye``
+    whose every mesh dim shards its batch or its experts or neither runs
+    on each device's rows and experts (``local_map``), ``combine`` taking
+    the same placements (a local slice where it is replicated, as torch
+    2.11 leaves it after the routing): each device contracts its own
+    experts, and the product is a partial sum over the experts' mesh
+    dims, which XLA reduces after it (torch 2.11 cannot flatten the
+    sharded E with C into the product's contraction). Anything else as
+    ``combine_fn`` runs it."""
+    if not (is_dtensor(combine) and is_dtensor(ye)):
+        return combine_fn(combine, ye)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    want, out_place = [], []
+    for p in ye.placements:
+        if p.is_shard(1):
+            want.append(Shard(2))
+            out_place.append(Partial())
+        elif p.is_shard(0) or p.is_replicate():
+            want.append(p)
+            out_place.append(p)
+        else:
+            return combine_fn(combine, ye)
+    combine = combine.redistribute(combine.device_mesh, want)
+    return _local_map(combine_fn, out_place, (want, list(ye.placements)),
+                      (combine, ye))
+
+
+def heads_on_shards(step, state, *args):
+    """``step(state, *args)``: one step of a per-head recurrent state (the
+    SSD's decode), ``state`` (B, heads, ...) and each of ``args`` (B,
+    heads, ...), returning tensors of that layout. DTensors run on each
+    device's batch rows and heads (``local_map``: every head is its own
+    recurrence): each argument takes ``state``'s batch and head
+    placements (a local slice where it is replicated), and so does each
+    output. torch 2.11 cannot view the state's sharded batch and heads
+    into one batch of its readout. Plain tensors run ``step`` as they
+    are."""
+    if not is_dtensor(state):
+        return step(state, *args)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = state.device_mesh
+    place = [Shard(p.dim) if p.is_shard() and p.dim in (0, 1) else
+             Replicate() for p in state.placements]
+    ins = [_as_dtensor(t, mesh, place) for t in (state, *args)]
+    return _local_map(step, (place, place), [place] * len(ins), ins)
+
+
+def router_like(router, x, experts):
+    """The MoE router (d, E) that the tokens ``x`` (G,T,d) meet. Where
+    autograd records a DTensor ``x`` (a train step), the router's E dim is
+    sharded as the expert stack ``experts`` (E, ...) shards its own (a
+    local slice): the placement XLA propagates to a train step's router
+    from the dispatch's expert sharding, each device computing its
+    experts' logits (and gathering them for the softmax). A serving step,
+    and anything not a DTensor, keeps the router as it is (XLA computes
+    its logits whole there)."""
+    if not (is_dtensor(router) and torch.is_grad_enabled()
+            and x.requires_grad):
+        return router
+    from torch.distributed.tensor import Shard
+    place = list(router.placements)
+    for i, ep in enumerate(experts.placements):
+        if ep.is_shard(0) and place[i].is_replicate():
+            place[i] = Shard(1)
+    return router.redistribute(router.device_mesh, place)
+
+
 def depthwise(conv, x, w):
     """``conv(x, w)``, a depthwise conv1d of x (B, C, L) with w (C, 1, W).
     DTensor has no strategy for a grouped convolution, so a DTensor x
@@ -564,11 +672,23 @@ def embed(table, ids):
     (``local_map``): an id outside them reads a zero row, and the rows'
     partial sums are all-reduced over the vocab's mesh dims (the
     vocab-parallel lookup, which DTensor plans itself on torch 2.13 but
-    not on 2.11 for ids sharded over two mesh dims). Anything else is
+    not on 2.11 for ids sharded over two mesh dims); a table replicated
+    whole looks each device's ids up (no collective). Anything else is
     indexed as it is."""
-    if not is_dtensor(table) or not _mesh_dims(table, 0):
+    if not is_dtensor(table):
         return table[ids]
     from torch.distributed.tensor import Partial, Replicate, Shard
+    if not _mesh_dims(table, 0):
+        # a replicated table (a vocab no mesh dim divides, whole over
+        # the batch's mesh dims) is read on each device's ids: torch 2.11
+        # has no strategy for ids sharded over two mesh dims there
+        if not (is_dtensor(ids) and all(p.is_replicate()
+                                        for p in table.placements)
+                and not any(p.is_partial() for p in ids.placements)):
+            return table[ids]
+        place = list(ids.placements)
+        return _local_map(lambda tab, i: tab[i], place,
+                          (list(table.placements), place), (table, ids))
     mesh, vocab = table.device_mesh, _mesh_dims(table, 0)
     if not is_dtensor(ids):
         ids = _as_dtensor(ids, mesh, [Replicate()] * mesh.ndim)

@@ -151,6 +151,16 @@ def ssd_forward(cfg, p, x, *, initial_state=None, return_state=False,
     return out
 
 
+def _state_step(state, xh, dt, Bh, Ch, a, D):
+    """The SSD's decode recurrence, per batch row and head: state (B, nh,
+    hd, N), xh (B, nh, hd), Bh/Ch (B, nh, N), dt/a/D (B, nh) -> (the new
+    state, y (B, nh, hd))."""
+    dstate = torch.einsum("bhp,bhn->bhpn", xh * dt[..., None], Bh)
+    new_state = a[:, :, None, None] * state + dstate
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return new_state, y + D[..., None] * xh
+
+
 def ssd_decode_step(cfg, p, x, conv_state, ssm_state):
     """One-token decode. x: (B,1,d); conv_state: (B, W-1, conv_ch);
     ssm_state: (B, nh, hd, N) f32. Returns (y, new_conv_state, new_ssm_state).
@@ -175,9 +185,8 @@ def ssd_decode_step(cfg, p, x, conv_state, ssm_state):
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])  # (B,nh)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A)  # (B,nh)
-    dstate = torch.einsum("bhp,bhn->bhpn", xh * dt[..., None], Bh.float())
-    new_state = a[:, :, None, None] * ssm_state + dstate
-    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.float())
-    y = y + p["D"][None, :, None] * xh
+    new_state, y = sharding.heads_on_shards(
+        _state_step, ssm_state, xh, dt, Bh.float(), Ch.float(), a,
+        p["D"].expand(B_, nh))
     y = _gated_norm(p, y.reshape(B_, 1, di), z)
     return y.to(x.dtype) @ p["out_proj"], new_conv_state, new_state

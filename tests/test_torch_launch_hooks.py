@@ -19,7 +19,7 @@ import sys
 import pytest
 import torch
 
-from repro_torch.models import attention, sharding
+from repro_torch.models import attention, sharding, ssm
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -32,7 +32,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.testing._internal.distributed.fake_pg import FakeStore
 from repro_torch.kernels import ref
 from repro_torch.launch import trace_analysis as ta
-from repro_torch.models import attention, common, sharding
+from repro_torch.models import attention, common, sharding, ssm
 dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
 mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
 torch.manual_seed(0)
@@ -176,10 +176,34 @@ part = DTensor.from_local(torch.randn(2, 2), mesh, [Partial(), S(1)],
 y, f, c = traced(lambda: sharding.reduce_partial(part))
 out["reduce_partial"] = [pl(y), list(y.to_local().shape), c]
 
+# a batch of one: the hidden's partial sums reduced before the
+# row-parallel product; the features sliced over "data" for the router
+hid = DTensor.from_local(torch.randn(1, 2), mesh, [Partial(), S(1)],
+                         run_check=False, shape=(1, 4), stride=(4, 1))
+wd = dt(torch.randn(4, 6), [S(1), S(0)])
+y, f, c = traced(lambda: sharding.summed(hid) @ wd)
+out["summed"] = [pl(y), list(y.to_local().shape), f, c]
+x1, wr = dt(torch.randn(1, 1, 4), [R, R]), dt(torch.randn(4, 6), [R, R])
+xs = sharding.features_over_fsdp(x1)
+y, f, c = traced(lambda: torch.einsum("gtd,de->gte", xs, wr))
+rows = dt(torch.randn(2, 1, 4), [S(0), R])
+out["features_over_fsdp"] = [pl(xs), pl(y), f, c,
+                             sharding.features_over_fsdp(rows) is rows]
+
+# a train step's router: its experts sharded as the expert stack's
+experts = dt(torch.randn(8, 4, 3), [R, S(0)])
+router = dt(torch.randn(4, 8), [R, R])
+xg = dt(torch.randn(2, 1, 4), [S(0), R], True)
+rg, f, c = traced(lambda: sharding.router_like(router, xg, experts))
+out["router_like"] = [pl(rg), list(rg.to_local().shape), c,
+                      sharding.router_like(router, xg.detach(), experts)
+                      is router]
+
 # the norm's input and a constraint hold their gradient's placements
 for name, hook in (("reduce_partial_grad", sharding.reduce_partial),
                    ("constrain_grad",
-                    lambda x: sharding.constrain(x, ("data", None)))):
+                    lambda x: sharding.constrain(x, ("data", None))),
+                   ("pinned_grad", sharding.pinned)):
     x = dt(torch.randn(4, 4), [S(0), R], True)
     wg = dt(torch.randn(4, 6), [R, S(1)])
 
@@ -188,6 +212,39 @@ for name, hook in (("reduce_partial_grad", sharding.reduce_partial),
         z.backward(dt(torch.ones(4, 6), [S(0), S(1)]))
     _, f, c = traced(back)
     out[name] = [pl(x.grad), f, c]
+
+# the MoE combine on each device's experts
+comb, ye = torch.randn(2, 2, 4, 2), torch.randn(2, 4, 2, 3)
+einsum = lambda a, b: torch.einsum("gtec,gecd->gtd", a, b)
+y, f, c = traced(lambda: sharding.combine_on_shards(
+    einsum, dt(comb, [S(0), S(2)]), dt(ye, [S(0), S(1)])))
+y2, f2, c2 = traced(lambda: sharding.combine_on_shards(
+    einsum, dt(comb, [R, S(2)]), dt(ye, [S(0), S(1)])))
+out["combine_on_shards"] = [pl(y), list(y.to_local().shape), f, c,
+                            close(y.to_local(),
+                                  einsum(comb[:1, :, :2], ye[:1, :2])),
+                            pl(y2), f2 == f, c2]
+
+# the SSD's decode step on each device's rows and heads
+st, xh = torch.randn(2, 4, 2, 3), torch.randn(2, 4, 2)
+bh, ch = torch.randn(2, 4, 3), torch.randn(2, 4, 3)
+dt_, a_, d_ = torch.rand(2, 4), torch.rand(2, 4), torch.randn(2, 4)
+(ns, yh), f, c = traced(lambda: sharding.heads_on_shards(
+    ssm._state_step, dt(st, [S(0), S(1)]), dt(xh, [R, S(1)]), dt(dt_, [R, R]),
+    dt(bh, [R, R]), dt(ch, [R, R]), dt(a_, [R, R]), dt(d_, [R, R])))
+(want_s, want_y), want_f, _ = traced(lambda: ssm._state_step(
+    st[:1, :2], xh[:1, :2], dt_[:1, :2], bh[:1, :2], ch[:1, :2], a_[:1, :2],
+    d_[:1, :2]))
+out["heads_on_shards"] = [pl(ns), pl(yh), f, want_f, c,
+                          close(ns.to_local(), want_s)
+                          and close(yh.to_local(), want_y)]
+
+# a replicated embedding table read on each device's ids
+tab = torch.randn(6, 4)
+ids = torch.randint(0, 6, (2, 4))
+y, f, c = traced(lambda: sharding.embed(dt(tab, [R, R]), dt(ids, [S(0), S(1)])))
+out["embed_replicated"] = [pl(y), list(y.to_local().shape), c,
+                           close(y.to_local(), tab[ids[:1, :2]])]
 
 xw, ww = torch.randn(2, 4, 8), torch.randn(4, 1, 3)
 conv = lambda a, b: F.conv1d(a, b, groups=a.shape[1])
@@ -340,7 +397,8 @@ def test_reduce_partial_reduces_and_gathers_the_feature_dim(probes):
                              "all-reduce": 2 * 4 * F32}]
 
 
-@pytest.mark.parametrize("hook", ["reduce_partial_grad", "constrain_grad"])
+@pytest.mark.parametrize("hook", ["reduce_partial_grad", "constrain_grad",
+                                  "pinned_grad"])
 def test_pinned_gradient_comes_back_reduced(probes, hook):
     """x (4, 4) [S(0), R] through the hook, then @ w (4, 6) [R, S(1)],
     with a gradient [S(0), S(1)] of the product: its input gradient is a
@@ -351,6 +409,63 @@ def test_pinned_gradient_comes_back_reduced(probes, hook):
     assert place == ["S(0)", "R"]
     assert flops == 2 * (2 * 2 * 4 * 3)
     assert coll == {"all-reduce": 2 * 4 * F32}
+
+
+def test_summed_reduces_a_hidden_before_its_row_parallel_product(probes):
+    """A batch of one's hidden (1, 4) [Partial, S(1)] against w_down
+    (4, 6) [S(1), S(0)]: the hidden's (1, 2) shard is all-reduced, then a
+    device multiplies it by its (2, 3) block of w, 2 * 1 * 2 * 3 FLOPs,
+    and the product is partial over "model" (DTensor alone would gather
+    w over "data" and multiply all 6 columns)."""
+    assert probes["summed"] == [["S(1)", "P(sum)"], [1, 3], 2 * 1 * 2 * 3,
+                                {"all-reduce": 1 * 2 * F32}]
+
+
+def test_features_over_fsdp_slices_a_batch_of_one(probes):
+    """x (1, 1, 4) replicated is sliced over "data" (no collective), so
+    its product with a replicated router (4, 6) contracts a device's 2
+    features, 2 * 1 * 2 * 6 FLOPs, into partial sums over "data"; rows
+    already sharded over "data" are left as they are."""
+    assert probes["features_over_fsdp"] == [
+        ["S(2)", "R"], ["P(sum)", "R"], 2 * 1 * 2 * 6, {}, True]
+
+
+def test_router_like_shards_a_train_steps_router_as_the_experts(probes):
+    """Under autograd the router (4, 8) is sliced over "model" as the
+    expert stack's E dim is (its (4, 4) block, no collective); tokens
+    that autograd does not record leave it as it is."""
+    assert probes["router_like"] == [["R", "S(1)"], [4, 4], {}, True]
+
+
+def test_combine_on_shards_contracts_each_devices_experts(probes):
+    """combine (2, 2, E 4, C 2) and ye (2, 4, 2, 3), rows on "data" and
+    experts on "model": a device contracts its row's 2 experts x 2 slots,
+    2 * (1 * 2 * 3) * (2 * 2) FLOPs, no collective, into a partial sum
+    over "model" equal to the plain combine of its slice; a combine whose
+    rows are whole is sliced to ye's (no collective), the same work."""
+    assert probes["combine_on_shards"] == [["S(0)", "P(sum)"], [1, 2, 3],
+                                           2 * (1 * 2 * 3) * (2 * 2), {},
+                                           True, ["S(0)", "P(sum)"], True,
+                                           {}]
+
+
+def test_heads_on_shards_steps_each_devices_heads(probes):
+    """A state (2, 4 heads, 2, 3) on ("data" rows, "model" heads), its
+    inputs replicated or sharded by heads: rank 0 steps its row and heads
+    0 and 1, the plain step's FLOPs on that slice, with no collective,
+    and its new state and readout equal that step's."""
+    s_place, y_place, flops, want_flops, coll, equal = \
+        probes["heads_on_shards"]
+    assert s_place == y_place == ["S(0)", "S(1)"]
+    assert flops == want_flops > 0 and coll == {} and equal
+
+
+def test_embed_reads_a_replicated_table_on_each_devices_ids(probes):
+    """A table (6, 4) replicated whole, ids (2, 4) on both mesh dims: each
+    device looks up its (1, 2) ids, no collective, rows equal to the
+    plain lookup's."""
+    assert probes["embed_replicated"] == [["S(0)", "S(1)"], [1, 2, 4], {},
+                                          True]
 
 
 def test_depthwise_shards_channels_as_the_weight(probes):
@@ -372,6 +487,18 @@ def test_hooks_leave_plain_tensors_alone():
     assert torch.equal(sharding.seq_matmul(t, w), t @ w)
     assert sharding.shard_vocab(w) is w
     assert sharding.reduce_partial(t) is t
+    assert sharding.summed(t) is t and sharding.pinned(t) is t
+    assert sharding.features_over_fsdp(t) is t
+    assert sharding.router_like(w, t.requires_grad_(), t) is w
+    comb = torch.randn(1, 2, 4, 2)
+    assert torch.equal(sharding.combine_on_shards(torch.add, comb, comb),
+                       comb + comb)
+    args = [torch.randn(1, 2, 3, 4), torch.randn(1, 2, 3)] + [
+        torch.randn(1, 2, 4)] * 2
+    state, y = sharding.heads_on_shards(
+        ssm._state_step, args[0], args[1], torch.rand(1, 2), args[2],
+        args[3], torch.rand(1, 2), torch.ones(1, 2))
+    assert state.shape == (1, 2, 3, 4) and y.shape == (1, 2, 3)
     assert sharding.gather_fsdp({"w": w}, like=t)["w"] is w
     cache = torch.zeros(2, 8, 2, 4)
     assert sharding.write_slot(cache, 3, torch.ones(2, 2, 4)) is cache
