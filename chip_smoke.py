@@ -360,9 +360,15 @@ def phase_kernels(seed):
     print(f"[kernels] built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
+        # registers and spills, and ptxas's wgmma serialisation warnings
+        # (C7510, C7514, C7520, ...: the wgmmas of a kernel run one by one)
+        serialised = [line for line in text.splitlines() if "C75" in line]
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 print(f"[kernels] {name}: {line.strip()}")
+        if not serialised:
+            print(f"[kernels] {name}: no ptxas C7510, C7514 or C7520 "
+                  f"warning (no wgmma serialised)")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)

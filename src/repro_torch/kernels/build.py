@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 Libraries are built at first use (never at import) into ``build/kernels``
 at the root of the checkout, named by a hash of their source and flags,
 so an edited source is rebuilt and an unchanged one is reused.
-``build()`` starts one ``nvcc`` per missing library, all at once.
+``build()`` starts one ``nvcc`` per missing library, all at once. Each
+function takes another ``csrc`` directory (another version of the sources,
+e.g. an earlier commit's, to time against), whose libraries get names of
+their own hash beside the port's.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -23,7 +26,7 @@ SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Path], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -34,16 +37,16 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
     """Where the library built from ``csrc/<name>.cu`` (and the headers of
     ``csrc/``, which it may include) lives."""
     src = b"".join(p.read_bytes() for p in
-                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+                   [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = SOURCES, csrc: Path = CSRC) -> Dict[str, str]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together.
 
@@ -54,12 +57,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """
     procs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     reports, errors = {}, []
@@ -75,11 +78,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+    lib = _loaded.get((name, csrc))
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build((name,), csrc)
+        lib = ctypes.CDLL(str(library_path(name, csrc)))
+        _loaded[name, csrc] = lib
     return lib

@@ -48,6 +48,16 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// one arrival where `pred` holds, predicated rather than branched (it may
+// sit between a wgmma and its wait)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+
 // waits until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -134,6 +144,11 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 // barrier `id`
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// arrives at named barrier `id` (of `n` threads) without waiting
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // four 8x8 bf16 matrices into the mma A/B fragment layout: lanes 8i..8i+7

@@ -58,17 +58,25 @@ def test_flash_kernel_on_card(cuda, S, K, G, hd, dtype, causal, window):
 @pytest.mark.parametrize("B,S,T,K,G,hd", [
     (8, 512, 512, 2, 8, 128),   # qwen2.5-3b serving: 8 heads packed a block
     (2, 300, 300, 1, 16, 64),   # 16 heads packed: 8 positions a block
-    (2, 200, 200, 2, 3, 128),   # G does not divide 128: one head a block
-    (1, 77, 333, 2, 6, 64),     # S != T, G does not divide 128
+    (2, 200, 200, 2, 3, 128),   # G does not divide 128: 42 x 3 rows a block
+    (1, 77, 333, 2, 6, 64),     # S != T, G does not divide 128: 21 x 6 rows
     (4, 8, 8, 2, 8, 128),       # serve_autoscale's 8-token prefill: one
                                 # work tile of 16 positions, 8 of them past S
     (4, 8, 64, 2, 8, 128),      # 8 queries over a full 64-key tile
+    (1, 77, 77, 2, 7, 128),     # llava's G 7: 18 positions x 7 heads a tile
+    (1, 3008, 3008, 1, 7, 128),  # llava's prefill length, ragged against 18
+    (1, 77, 333, 2, 5, 64),     # G 5, S != T: 25 x 5 = 125 rows
+    (2, 65, 129, 1, 6, 128),    # G 6, S < T: 21 x 6 = 126 rows
+    (1, 100, 100, 1, 7, 256),   # G 7 at head_dim 256
+    (1, 40, 40, 1, 96, 64),     # G 96: one position of 96 heads a tile
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
 def test_flash_kernel_gqa_packing_on_card(cuda, B, S, T, K, G, hd, causal,
                                           window):
     """The bf16 kernel with the query heads of a KV head packed into one
-    block's rows, and with one head a block where G does not divide them."""
+    block's rows: floor(128 / G) positions of G heads, for any G. Where G
+    does not divide 128 the dead rows past them are never stored, and
+    where it does not divide 64 O leaves as one box of the whole tile."""
     gen = torch.Generator(device=cuda).manual_seed(S + G)
     q = torch.randn((B, S, K, G, hd), generator=gen, device=cuda).bfloat16()
     k = torch.randn((B, T, K, hd), generator=gen, device=cuda).bfloat16()
@@ -107,6 +115,44 @@ def test_flash_kernel_head_dim_256_on_card(cuda, B, S, T, K, G, dtype, causal,
     assert torch.isfinite(out).all()
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert rel_err(out, want) <= tol
+
+
+def flash_inputs(cuda, B, S, T, K, G, hd, dtype=torch.bfloat16, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((B, S, K, G, hd), generator=gen, device=cuda).to(dtype),
+            torch.randn((B, T, K, hd), generator=gen, device=cuda).to(dtype),
+            torch.randn((B, T, K, hd), generator=gen, device=cuda).to(dtype))
+
+
+def check_flash(q, k, v, out, causal, window):
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.isfinite(out).all()
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T", [(8, 1500, 1500), (2, 1500, 1421),
+                                   (2, 300, 77)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_whisper_encoder_on_card(cuda, B, S, T, dtype):
+    """whisper-medium's encoder: head_dim 64, 16 heads, non-causal over
+    1500 frames, and ragged key lengths."""
+    q, k, v = flash_inputs(cuda, B, S, T, 16, 1, 64, dtype, seed=T)
+    check_flash(q, k, v, tfa.flash_attention(q, k, v, causal=False), False, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 65, 129])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
+def test_flash_kernel_short_rows_on_card(cuda, S, hd, causal, window):
+    """Work tiles of one, two and three key tiles: the first tile, the
+    overlapped steps and the last P V of the bf16 schedule."""
+    q, k, v = flash_inputs(cuda, 2, S, S, 2, 4, hd, seed=S + hd)
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    check_flash(q, k, v, out, causal, window)
 
 
 @pytest.mark.gpu

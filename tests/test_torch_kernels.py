@@ -48,6 +48,8 @@ def rel_err(got, want):
     (1, 128, 128, 2, 4, 128),
     (1, 128, 128, 2, 1, 256),    # gemma-7b's head_dim
     (1, 128, 128, 1, 2, 256),
+    (1, 128, 128, 1, 7, 128),    # llava's 7 query heads a KV head
+    (1, 128, 128, 2, 3, 64),     # 3 query heads a KV head
 ])
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
