@@ -5,14 +5,15 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
-Fourteen phases; any failure raises and the exit code is non-zero.
+Sixteen phases; any failure raises and the exit code is non-zero.
 
 1. Device: the card's name, count, power limit; TF32 switched off.
 2. Kernels: builds every CUDA kernel of the serving paths from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
    once), holds each against its plain PyTorch version on the card at the
    serving shapes (max |kernel - plain| / max |plain| <= 2e-2 in bf16,
-   <= 1e-4 in f32), and times the kernel, the plain version and, where
+   <= 1e-4 in f32 and for the bf16 SSD scan, whose products keep f32
+   operands' lo parts), and times the kernel, the plain version and, where
    one exists, one PyTorch library call (``scaled_dot_product_attention``
    for attention, ``torch.bmm`` for ``gmm``: yardsticks the port never
    calls) with CUDA events. No single PyTorch call computes the SSD scan
@@ -44,53 +45,69 @@ Fourteen phases; any failure raises and the exit code is non-zero.
    both are set by bf16 roundings of each block's output that flip with
    any change in the last bits, not by the kernel. Then the same profile
    as phase 3.
-5. Serving deepseek-moe-16b: full width and depth (28 layers, 64 routed
-   experts of d_ff 1408, top-6, 2 shared; random bf16 weights from
-   ``--seed``), after the earlier phases' models are freed, the same pod
-   shape at quota 1.0, 16 requests in two batches of 8: prompts of 64-512
-   tokens with one of 512 (capacity 64 a group, 512 rows an expert), then
-   of 64-437 with one of 437 (capacity 56, a ragged 448 rows). Checks
-   that every prefill and decode step launched the grouped matmuls twice a
-   MoE layer (``gmm_gated`` for gate and up, ``gmm`` for down: 54) and the
-   attention kernels once a layer. Holds each MoE
-   layer's output, grouped matmul vs plain expert FFN on the same input,
-   in bf16 (<= 3e-2), and the forward logits of a full-width stack cut to
-   its first 4 layers (the dense one and 3 MoE) with fresh f32 weights
-   (<= 1e-4); prints, not held, the whole stack's bf16 logits beside the
-   number of (layer, token) pairs whose top-6 expert set differs between
-   the two stacks. Holds each MoE layer of a single-group decode step
-   (capacity 2: tokens past an expert's second are dropped) against the
-   plain path in bf16 (<= 3e-2), and prints the whole step's logits.
-   Measures each step's footprint (``measure_footprint``) and checks that
-   ``LibHas`` refuses a budget one byte below it. Then the same profile.
+5.-11. Serving, one phase a row of ``SERVED`` (``phase_serving_model``),
+   each after the earlier phase's model is freed (the memory still
+   allocated is printed), random bf16 weights from ``--seed``, the same
+   pod shape at quota 1.0, two batches of requests:
+   5. deepseek-moe-16b, full width and depth (28 layers, 64 routed experts
+      of d_ff 1408, top-6, 2 shared): prompts of 64-512 tokens with one of
+      512 (capacity 64 a group, 512 rows an expert), then of 64-437 with
+      one of 437 (capacity 56, a ragged 448 rows).
+   6. jamba-v0.1-52b at full width, its first 16 of 32 layers (two 8-layer
+      periods: 14 SSD layers of 128 heads of (64, 16) in one group, 2
+      attention layers of 8 KV heads of 4 query heads, 8 MoE layers of 16
+      experts of d_ff 14336, top-2; 48.4 GiB of bf16 weights: its 95.9 GiB
+      at full depth do not fit one card, and the cut leaves every kernel's
+      shapes as they are): prompts of 64-512 with one of 512 (two SSD
+      chunks of 256, so the carried state is used) and of 64-237 with one
+      of 237 (one ragged chunk: an SSD layer takes one chunk or whole
+      chunks, as the reference's).
+   7. dbrx-132b at full width, its first 8 of 40 layers (attention of 8 KV
+      heads of 6 query heads and MoE of 16 experts of d_ff 10752, top-4, in
+      every layer; 50.9 GiB of its 245.1): prompts of 64-512 (one of 512)
+      and 64-437 (one of 437).
+   8.-11. gemma-7b (head_dim 256) and command-r-35b (8 query heads a KV
+      head) as dbrx; llava-next-34b, two batches of 4 whose text of 16-128
+      tokens (one of 128) and 16-77 (one of 77) follows 2880 visual tokens
+      (zeros, as the engine sends), ``max_seq`` 3072, so flash runs at S =
+      2880 + L and decode starts at position 2880 + L; whisper-medium,
+      prompts of 8-64 (one of 64) and 8-37 (one of 37) over 1500 frames
+      (zeros). All four at full width and depth.
+   Each checks output lengths and finite logits, and each step's launches
+   of every kernel (counts reset just before it and read just after; a
+   prefill: flash once an attention layer, and once an encoder layer,
+   ``ssd_chunk_scan`` once an SSD layer, ``gmm_gated`` and ``gmm`` once
+   each a MoE layer; a decode step: ``decode_attention`` once an attention
+   layer and the pair once each a MoE layer; jamba 2, 0, 14, 8, 8 and 0,
+   2, 0, 8, 8; dbrx 8, 0, 0, 8, 8 and 0, 8, 0, 8, 8). On random tokens
+   (and random visual or frame embeddings) of the longer batch's length
+   (llava at batch 1, where the plain path holds 2 GB of f32 scores a
+   layer), it holds every kernel launch of one prefill and of the decode
+   step after it against the kernel's plain version on the same input,
+   in bf16 (<= 3e-2). A model with MoE layers holds each SSD and MoE
+   layer's output on the plain stack's input, kernel against plain (<=
+   3e-2), and prints, not held, the whole stack's bf16 logits beside the
+   number of (layer, token) pairs whose top-k expert set differs between
+   the two stacks; after its bf16 model is freed, it holds the forward
+   logits of the full-width stack cut to its first layers with fresh f32
+   weights (<= 1e-4): deepseek's 4 (the dense one and 3 MoE), jamba's 5
+   (SSD/dense, SSD/MoE, SSD/dense, SSD/MoE, attention/dense: each kind
+   once), dbrx's 2. The others hold the prefill logits through the
+   kernels against the plain versions (<= 3e-2). deepseek also holds each
+   MoE layer of a single-group decode step (capacity 2: tokens past an
+   expert's second are dropped) against the plain path in bf16 (<= 3e-2),
+   and prints the whole step's logits. Each measures its steps'
+   footprints (``measure_footprint``), checks that ``LibHas`` refuses a
+   budget one byte below each, and profiles a prefill and a decode step
+   as phase 3.
 
-6.-9. Serving gemma-7b, command-r-35b, llava-next-34b and whisper-medium,
-   each at full width and depth with random bf16 weights from ``--seed``,
-   after the earlier phase's model is freed (the memory still allocated is
-   printed), at quota 1.0: gemma (head_dim 256) and command-r (8 query
-   heads a KV head), 16 requests in two batches of 8 with prompts of
-   64-512 tokens (one of 512) and 64-437 (one of 437), ``max_seq`` 1024;
-   llava, 8 requests in two batches of 4 whose text of 16-128 tokens (one
-   of 128) and 16-77 (one of 77) follows 2880 visual tokens (zeros, as the
-   engine sends), ``max_seq`` 3072, so flash runs at S = 2880 + L and
-   decode starts at position 2880 + L; whisper, 16 requests in two batches
-   of 8 with prompts of 8-64 (one of 64) and 8-37 (one of 37) over 1500
-   frames (zeros), ``max_seq`` 1024. Checks output lengths and finite
-   logits, that every prefill launched flash once a layer (whisper: 24
-   non-causal encoder launches and 24 causal decoder ones) and every decode
-   step decode_attention once a decoder layer, each step's footprint and
-   LibHas refusing a budget one byte below it, and profiles a prefill and a
-   decode step. Then, on random tokens and random visual or frame
-   embeddings, every flash launch of a prefill against the kernel's plain
-   version on the same input (bf16, <= 3e-2), and the prefill logits
-   through the kernels against plain attention (<= 3e-2; llava at batch 1,
-   where the plain path holds 2 GB of f32 scores a layer).
-
-The kernels phase also holds ``flash_attention`` at those families'
+The kernels phase also holds ``flash_attention`` at those models'
 shapes (gemma's head_dim 256, whisper's non-causal encoder over 1500
-frames, llava's 7 query heads a KV head at S = 3008) in bf16 and f32 and
-times kernel, plain and SDPA there, and holds and times
-``decode_attention`` at gemma's (8, 1, 16, 1, 256) over a 1024-slot ring.
+frames, llava's 7 query heads a KV head at S = 3008) and at jamba's (8,
+512, 8, 4, 128) and dbrx's (8, 512, 8, 6, 128) prefills in bf16 and f32
+and times kernel, plain and SDPA there, and holds and times
+``decode_attention`` at gemma's (8, 1, 16, 1, 256), jamba's (8, 1, 8, 4,
+128) and dbrx's (8, 1, 8, 6, 128) over a 1024-slot ring.
 It also holds ``decode_attention`` at head_dim 64, 128
 and 256 with 1, 7 and 8 query heads a KV head over a partly filled and a
 wrapped ring, and on an all-false mask against the mean of V (the Pallas
@@ -108,9 +125,15 @@ an unaligned x, and an f32 x whose tiles are partly bf16-exact), for three
 pairs of types (x and w bf16; x f32 and w bf16, the serving path: the
 reference's one-hot dispatch promotes a bf16 model's tokens to f32; x
 and w f32, an f32 model), and both attention kernels at
-deepseek's 16 heads of 128 with one query head a KV head.
+deepseek's 16 heads of 128 with one query head a KV head. It holds and
+times ``gmm_gated`` and ``gmm`` at jamba's and dbrx's prefill expert
+shapes (8 groups of the reference's capacity, f32 tokens of bf16 values
+against bf16 weights) beside ``torch.bmm`` in f32 and the bound, and
+holds them at those models' decode step (eight groups of one token). It
+prints each library's ptxas registers, spills and C75xx (wgmma
+serialised) lines.
 
-10. Calibrate: the profiling harness (``repro_torch.profiling``) over
+12. Calibrate: the profiling harness (``repro_torch.profiling``) over
    ``H100_GRID`` (olmo-1b and mamba2-2.7b at full width with random
    weights, on an h100 vGPU: batches 1 and 8, sm 2, 4 and 8, quotas 0.5
    and 1.0, prefill of 512 tokens and one decode step: 48 points), here
@@ -132,7 +155,7 @@ deepseek's 16 heads of 128 with one query head a KV head.
    and B 8, <= 3e-2); and holds olmo-1b's prefill logits (B 1 and 8,
    L 512) through the kernels against plain attention (<= 3e-2).
 
-11. Autoscale: the control plane in the port. (a) On the host, every
+13. Autoscale: the control plane in the port. (a) On the host, every
    golden case (each scenario of ``repro_torch.workloads.scenarios`` under
    ``has``, ``steady_poisson`` also under ``kserve`` and ``fast``; seed
    42, 45 s) run by the port and held to ``tests/goldens/`` by the port's
@@ -162,7 +185,7 @@ deepseek's 16 heads of 128 with one query head a KV head.
    ring (one tile, a split of 1) against the plain versions on the same
    inputs (bf16, <= 3e-2).
 
-12. Train: full-width, full-depth olmo-1b (16 layers, d_model 2048, vocab
+14. Train: full-width, full-depth olmo-1b (16 layers, d_model 2048, vocab
    50304, tied embeddings; random bf16 weights from ``--seed``), after the
    earlier models are freed, trained for 20 steps through the port's
    launcher (``repro_torch.launch.train.train``) at batch 8, sequence
@@ -185,7 +208,7 @@ deepseek's 16 heads of 128 with one query head a KV head.
    step's device busy and idle share with its top operators
    (torch.profiler), and the peak memory.
 
-13. RaPP: the port's operator-graph extractor on the host over the
+15. RaPP: the port's operator-graph extractor on the host over the
    rapp_train twin's corpus (olmo-1b, qwen2.5-3b, gemma-7b, mamba2-2.7b,
    deepseek-moe-16b at full width, batches 1, 4, 16): each graph's trace
    and coarsening seconds, node and edge counts before and after
@@ -217,7 +240,7 @@ deepseek's 16 heads of 128 with one query head a KV head.
    qwen2.5-3b at batches 1, 4, 8 and 16. Holds that no kernel launched
    during the phase.
 
-14. Launch: the launchers of ``repro_torch.launch``. (a) The serve
+16. Launch: the launchers of ``repro_torch.launch``. (a) The serve
    launcher at its defaults (``serve.serve``: full-width qwen2.5-3b,
    random bf16 weights from ``--seed``, 16 requests of 8 tokens, 8 new
    each, one pod of sm 4, quota 0.5, batch 4): checks 16 requests of 8
@@ -257,6 +280,7 @@ and RaPP phases launch none); the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import json
@@ -277,19 +301,48 @@ K, G, HD = 2, 8, 128  # qwen2.5-3b attention: 2 KV heads x 8 query heads
 NH, SG, SHD, SN = 80, 8, 64, 128  # mamba2-2.7b SSD: heads, groups, head_dim, state
 JAMBA_SSD = (128, 1, 64, 16)      # jamba-v0.1-52b's SSD layer, the same order
 ME, MD, MF = 64, 2048, 1408       # deepseek-moe-16b: experts, d_model, expert d_ff
-# the phases of the other served families: (arch, batch, max_seq, the
-# batches' prompt lengths (lo, hi, longest), rows of the logits check)
-FAMILIES = (
-    ("gemma-7b", 8, 1024, ((64, 512, 512), (64, 437, 437)), 8),
-    ("command-r-35b", 8, 1024, ((64, 512, 512), (64, 437, 437)), 8),
-    ("llava-next-34b", 4, 3072, ((16, 128, 128), (16, 77, 77)), 1),
-    ("whisper-medium", 8, 1024, ((8, 64, 64), (8, 37, 37)), 8),
-)
-# flash at the served shapes of those families: (B, S = T, K, G, hd, causal)
+# flash at the prefill shapes of the served phases beside qwen's and
+# deepseek's: (B, S = T, K, G, hd, causal)
 FAMILY_FLASH = (
     ("gemma-7b prefill", (8, 512, 16, 1, 256, True)),
     ("whisper-medium encoder", (8, 1500, 16, 1, 64, False)),
     ("llava-next-34b prefill", (4, 3008, 8, 7, 128, True)),
+    ("jamba-v0.1-52b prefill", (8, 512, 8, 4, 128, True)),
+    ("dbrx-132b prefill", (8, 512, 8, 6, 128, True)),
+)
+# decode over a 1024-slot ring at the served shapes beside qwen's:
+# (label, KV heads, query heads a KV head, head_dim)
+DECODE_SHAPES = (("deepseek-moe-16b", 16, 1, 128), ("gemma-7b", 16, 1, 256),
+                 ("jamba-v0.1-52b", 8, 4, 128), ("dbrx-132b", 8, 6, 128))
+KERNELS = ("flash_attention", "decode_attention", "ssd_chunk_scan", "gmm",
+           "gmm_gated")
+# a served phase after qwen's and mamba2's: the arch, its batches' prompt
+# lengths (lo, hi, longest), the layers served (None: all), the batch, the
+# KV ring, the rows of the checks' prefill, the layers of the f32 cut (None:
+# none) and whether single-group decode is held
+Served = collections.namedtuple(
+    "Served", "arch batches layers batch max_seq rows f32_cut single_group",
+    defaults=(None, 8, 1024, 8, None, False))
+# jamba-v0.1-52b and dbrx-132b take 95.9 and 245.1 GiB of bf16 weights at
+# full depth, more than one card's 80 GB: they serve their first 16 (two
+# 8-layer periods: 14 SSD, 2 attention and 8 MoE layers, 48.4 GiB) and 8
+# layers (50.9 GiB) at full width, which leaves every kernel's shapes as at
+# full depth. An SSD layer takes a prefill of at most one chunk (256) or
+# of whole chunks, as the reference's (``ssd_forward``), so jamba's ragged
+# batch is one chunk of 237. llava's checks run at batch 1, where the
+# plain path holds 2 GB of f32 scores a layer
+SERVED = (
+    Served("deepseek-moe-16b", ((64, 512, 512), (64, 437, 437)), f32_cut=4,
+           single_group=True),
+    Served("jamba-v0.1-52b", ((64, 512, 512), (64, 237, 237)), layers=16,
+           f32_cut=5),
+    Served("dbrx-132b", ((64, 512, 512), (64, 437, 437)), layers=8,
+           f32_cut=2),
+    Served("gemma-7b", ((64, 512, 512), (64, 437, 437))),
+    Served("command-r-35b", ((64, 512, 512), (64, 437, 437))),
+    Served("llava-next-34b", ((16, 128, 128), (16, 77, 77)), batch=4,
+           max_seq=3072, rows=1),
+    Served("whisper-medium", ((8, 64, 64), (8, 37, 37))),
 )
 
 
@@ -316,6 +369,39 @@ def flash_work(B, S, T, K, G, hd, causal):
     read once and o written once in bf16."""
     pairs = B * K * G * (S * (S + 1) // 2 if causal else S * T)
     return 4 * hd * pairs, 2 * (2 * B * S * K * G * hd + 2 * B * T * K * hd)
+
+
+def ssd_inputs(gen, nc, B, Q, nh, ng, hd, n, dtype, h0_scale):
+    """Chunked SSD inputs as the model makes them, on the card from
+    ``gen``: x, B and C strided views of one (B, S, channels) conv output,
+    B and C by group; dt and dA f32; h0 f32 times ``h0_scale``."""
+    import torch
+    S = nc * Q
+    xbc = torch.randn((B, S, nh * hd + 2 * ng * n), generator=gen,
+                      device="cuda").to(dtype)
+    xs, Bm, Cm = torch.split(xbc, [nh * hd, ng * n, ng * n], dim=-1)
+    dt = torch.rand((B, S, nh), generator=gen, device="cuda") * 0.1 + 1e-3
+    dA = dt * -(torch.rand((nh,), generator=gen, device="cuda") * 15 + 1)
+
+    def chunked(t, *tail):
+        return t.reshape(B, nc, Q, *tail).transpose(0, 1)
+
+    h0 = torch.randn((B, nh, hd, n), generator=gen, device="cuda") * h0_scale
+    return (chunked(xs, nh, hd), chunked(Bm, ng, n), chunked(Cm, ng, n),
+            chunked(dt, nh), chunked(dA, nh), h0)
+
+
+def ssd_work(nh, ng, hd, n, nc, B, Q):
+    """(operations, bytes) the SSD scan must do for these inputs: C B^T
+    and P x over the causal (row, key) pairs, C h^T and the state update
+    over every row; x, B, C (by group) bf16 and dt, dA f32 read once, y
+    f32 written once, the f32 state read and written once."""
+    rows = nc * B * Q
+    pairs = nc * B * nh * Q * (Q + 1) // 2
+    flops = 2 * pairs * (n + hd) + 4 * rows * nh * hd * n
+    nbytes = (2 * rows * (nh * hd + 2 * ng * n) + 4 * 2 * rows * nh
+              + 4 * rows * nh * hd + 2 * 4 * B * nh * hd * n)
+    return flops, nbytes
 
 
 def fmt_ms(t):
@@ -349,11 +435,13 @@ def phase_kernels(seed):
     """Build, check and time every kernel. Returns the record of each."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ffn
 
     t0 = time.perf_counter()
     reports = build.build()
@@ -470,25 +558,11 @@ def phase_kernels(seed):
              ref.decode_attention_ref(q, k, v, valid), dname)
         del q, k, v
 
-    def ssd_inputs(nc, Q, dtype, h0_scale, nh=NH, ng=SG, hd=SHD, n=SN):
-        """Chunked SSD inputs as the model makes them: x, B and C strided
-        views of one (B, S, channels) conv output, B and C by group."""
-        S = nc * Q
-        xbc = randn(B, S, nh * hd + 2 * ng * n, dtype=dtype)
-        xs, Bm, Cm = torch.split(xbc, [nh * hd, ng * n, ng * n], dim=-1)
-        dt = torch.rand((B, S, nh), generator=gen, device="cuda") * 0.1 + 1e-3
-        dA = dt * -(torch.rand((nh,), generator=gen, device="cuda") * 15 + 1)
-
-        def chunked(t, *tail):
-            return t.reshape(B, nc, Q, *tail).transpose(0, 1)
-
-        return (chunked(xs, nh, hd), chunked(Bm, ng, n), chunked(Cm, ng, n),
-                chunked(dt, nh), chunked(dA, nh),
-                randn(B, nh, hd, n, dtype=torch.float32) * h0_scale)
-
     # mamba2's served shapes, a chunk longer than the kernel's 256-row
     # sub-chunks, and jamba-v0.1-52b's full-width layer (128 heads of
-    # (64, 16), one group)
+    # (64, 16), one group). Both shapes run the bf16 wgmma kernels, which
+    # split every product with an f32 operand into bf16 hi and lo parts:
+    # held at f32's 1e-4 (without the lo parts they miss by about 3e-3)
     ssd_cases = [("serving_L512", 2, 256, 0.0, ()),
                  ("ragged_Q237", 1, 237, 0.0, ()),
                  ("nonzero_h0", 2, 256, 0.5, ()),
@@ -497,21 +571,22 @@ def phase_kernels(seed):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for label, nc, Q, h0_scale, shape in ssd_cases:
-            args = ssd_inputs(nc, Q, dtype, h0_scale, *shape)
             nh, ng, shd, sn = shape or (NH, SG, SHD, SN)
+            args = ssd_inputs(gen, nc, B, Q, nh, ng, shd, sn, dtype, h0_scale)
             final, y = ss.ssd_chunk_scan(*args)
             want_final, want_y = ref.ssd_chunk_scan_ref(*args)
             torch.cuda.synchronize()
             for what, got, want in (("y", y, want_y),
                                     ("state", final, want_final)):
                 diff, rel = errors(got, want)
+                tol = TOL["float32"]
                 print(f"[kernels] ssd_chunk_scan {dname} {label} nc={nc} "
                       f"B={B} Q={Q} nh={nh} hd={shd} N={sn} G={ng} {what}: "
                       f"max abs err {diff:.3g}, max rel err {rel:.3g} "
-                      f"(tol {TOL[dname]})")
-                if not rel <= TOL[dname]:
+                      f"(tol {tol})")
+                if not rel <= tol:
                     raise AssertionError(f"ssd_chunk_scan {dname} {label} "
-                                         f"{what}: rel err {rel} > {TOL[dname]}")
+                                         f"{what}: rel err {rel} > {tol}")
                 if dtype == torch.bfloat16:
                     worst["ssd_chunk_scan"] = max(worst["ssd_chunk_scan"], diff)
             del args, final, y, want_final, want_y
@@ -717,15 +792,15 @@ def phase_kernels(seed):
                                20),
         "graph_ms": graph_ms(lambda: da.decode_attention(q, k, v, valid)),
     }
-    # deepseek's shape (16 KV heads of one query head, head_dim 128) and
-    # gemma-7b's (head_dim 256)
-    for hd in (HD, 256):
-        q16 = randn(B, 1, 16, 1, hd, dtype=bf)
-        k16, v16 = (randn(B, T, 16, hd, dtype=bf) for _ in range(2))
+    # deepseek's shape (16 KV heads of one query head, head_dim 128),
+    # gemma-7b's (head_dim 256) and dbrx-132b's (6 query heads a KV head)
+    for arch, nkv, g, hd in DECODE_SHAPES:
+        q16 = randn(B, 1, nkv, g, hd, dtype=bf)
+        k16, v16 = (randn(B, T, nkv, hd, dtype=bf) for _ in range(2))
         k16h, v16h = (t.permute(0, 2, 1, 3).contiguous() for t in (k16, v16))
-        q16h = q16.reshape(B, 16, 1, hd)
-        nbytes = 2 * (2 * q16.numel() + 2 * B * n_valid * 16 * hd) + T
-        bound = max(4 * hd * B * 16 * n_valid / PEAK_BF16,
+        q16h = q16.reshape(B, nkv * g, 1, hd)
+        nbytes = 2 * (2 * q16.numel() + 2 * B * n_valid * nkv * hd) + T
+        bound = max(4 * hd * B * nkv * g * n_valid / PEAK_BF16,
                     nbytes / PEAK_BW) * 1e3
 
         def kern16():
@@ -737,10 +812,11 @@ def phase_kernels(seed):
         def sdpa16():
             return sdpa(q16h, k16h, v16h, attn_mask=mask)
 
-        hold("decode_attention", f"q ({B},1,16,1,{hd}) k/v ({B},{T},16,{hd})"
-             f" pos{pos}", kern16(), plain16(), "bfloat16")
-        print(f"[kernels] decode_attention bf16 q ({B},1,16,1,{hd}), k/v "
-              f"({B},{T},16,{hd}), {n_valid} of {T} slots valid: CUDA events "
+        shape = f"q ({B},1,{nkv},{g},{hd}), k/v ({B},{T},{nkv},{hd})"
+        hold("decode_attention", f"{arch} {shape} pos{pos}", kern16(),
+             plain16(), "bfloat16")
+        print(f"[kernels] decode_attention bf16 {arch} {shape}, {n_valid} of "
+              f"{T} slots valid: CUDA events "
               f"{cuda_ms(kern16, 50):.4f} ms, torch.profiler device time "
               f"{fmt_ms(device_ms(kern16, 20))}, CUDA graph of 20 calls "
               f"{graph_ms(kern16):.4f} ms a call; plain "
@@ -750,9 +826,8 @@ def phase_kernels(seed):
               f"(bytes; {nbytes / 1e6:.1f} MB)")
     del q16, k16, v16, k16h, v16h
     nc, Q = 2, 256
-    args = ssd_inputs(nc, Q, bf, 0.0)
-    pairs = nc * B * NH * Q * (Q + 1) // 2           # causal (row, key) pairs
-    n_rows = nc * B * Q
+    args = ssd_inputs(gen, nc, B, Q, NH, SG, SHD, SN, bf, 0.0)
+    flops, nbytes = ssd_work(NH, SG, SHD, SN, nc, B, Q)
     ssd = {
         "name": "ssd_chunk_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -763,21 +838,14 @@ def phase_kernels(seed):
         "ms": cuda_ms(lambda: ss.ssd_chunk_scan(*args), 20),
         "plain_ms": cuda_ms(lambda: ref.ssd_chunk_scan_ref(*args), 5),
         "library_ms": None,   # no single PyTorch call computes the scan
-        # C B^T and P x over the causal pairs, C h^T and the state update
-        # over every row
-        "flops": 2 * pairs * (SN + SHD) + 4 * n_rows * NH * SHD * SN,
-        # x, B, C (by group) bf16, dt, dA f32 in; y f32 out; state in and out
-        "bytes": (2 * n_rows * (NH * SHD + 2 * SG * SN) + 4 * 2 * n_rows * NH
-                  + 4 * n_rows * NH * SHD + 2 * 4 * B * NH * SHD * SN),
+        "flops": flops, "bytes": nbytes,
         "device_ms": device_ms(lambda: ss.ssd_chunk_scan(*args)),
     }
     del args
     # jamba-v0.1-52b's full-width SSD layer: 128 heads of (64, 16), one group
     jn, jg, jhd, jsn = JAMBA_SSD
-    args = ssd_inputs(nc, Q, bf, 0.0, *JAMBA_SSD)
-    flops = 2 * pairs // NH * jn * (jsn + jhd) + 4 * n_rows * jn * jhd * jsn
-    nbytes = (2 * n_rows * (jn * jhd + 2 * jg * jsn) + 4 * 2 * n_rows * jn
-              + 4 * n_rows * jn * jhd + 2 * 4 * B * jn * jhd * jsn)
+    args = ssd_inputs(gen, nc, B, Q, *JAMBA_SSD, bf, 0.0)
+    flops, nbytes = ssd_work(*JAMBA_SSD, nc, B, Q)
     bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
     print(f"[kernels] ssd_chunk_scan bf16 jamba x ({nc},{B},{Q},{jn},{jhd}), "
           f"B/C ({nc},{B},{Q},{jg},{jsn}): CUDA events "
@@ -865,6 +933,60 @@ def phase_kernels(seed):
               f"{lib_s}, bound {bound:.4f} ms "
               f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     del xd, wd, xe, wg, wu, x3, xb, x8, xe8, wg32
+    # the gmm pair at the prefill expert shapes of jamba-v0.1-52b (16
+    # experts, top-2, 4096 -> 14336) and dbrx-132b (16, top-4, 6144 ->
+    # 10752): B 8, L 512, eight groups of the reference's capacity, f32
+    # tokens (bf16 values) against bf16 weights, held and timed beside
+    # torch.bmm in f32 on f32 copies of the weights (two calls for the
+    # gated pair); then held at a decode step's eight groups of one token
+    for arch in ("jamba-v0.1-52b", "dbrx-132b"):
+        mc = ARCHS[arch]
+        E, d, f = mc.moe.num_experts, mc.d_model, mc.d_ff
+        ng, cg = 8, ffn.capacity(mc, 512, 1.25)
+        rows = ng * cg
+        xe = randn(ng, E, cg, d, dtype=torch.bfloat16).float()
+        wg, wu = ((randn(E, d, f, dtype=torch.float32) / d ** 0.5).bfloat16()
+                  for _ in range(2))
+        wd = (randn(E, f, d, dtype=torch.float32) / f ** 0.5).bfloat16()
+        hid = mg.gmm_gated(xe, wg, wu)
+        hold("gmm_gated", f"{arch} prefill xe {tuple(xe.shape)} @ "
+             f"2x({E},{d},{f})", hid, ref.gmm_gated_ref(xe, wg, wu), "float32")
+        hold("gmm", f"{arch} prefill down {tuple(hid.shape)} @ ({E},{f},{d})",
+             mg.gmm(hid, wd), ref.gmm_ref(hid, wd), "float32")
+        # a decode step: eight groups of one token, capacity 1 an expert
+        xd = randn(ng, E, ffn.capacity(mc, 1, 1.25), d,
+                   dtype=torch.bfloat16).float()
+        hd_ = mg.gmm_gated(xd, wg, wu)
+        hold("gmm_gated", f"{arch} decode xe {tuple(xd.shape)} @ "
+             f"2x({E},{d},{f})", hd_, ref.gmm_gated_ref(xd, wg, wu), "float32")
+        hold("gmm", f"{arch} decode down {tuple(hd_.shape)} @ ({E},{f},{d})",
+             mg.gmm(hd_, wd), ref.gmm_ref(hd_, wd), "float32")
+        del xd, hd_
+        x3 = xe.transpose(0, 1).reshape(E, rows, d).contiguous()
+        wg32, wu32, wd32 = wg.float(), wu.float(), wd.float()
+        for label, flops, nbytes, kern, plain, lib in (
+                (f"gated f32 x (bf16 values) bf16 w, {arch} prefill xe "
+                 f"{tuple(xe.shape)} @ 2x({E},{d},{f})",
+                 2 * 2 * E * rows * d * f,
+                 4 * E * rows * d + 2 * 2 * E * d * f + 4 * E * rows * f,
+                 lambda: mg.gmm_gated(xe, wg, wu),
+                 lambda: ref.gmm_gated_ref(xe, wg, wu),
+                 lambda: (torch.bmm(x3, wg32), torch.bmm(x3, wu32))),
+                (f"f32 x bf16 w, {arch} prefill down ({E},{rows},{f}) @ "
+                 f"({E},{f},{d})", 2 * E * rows * f * d,
+                 4 * E * rows * f + 2 * E * f * d + 4 * E * rows * d,
+                 lambda: mg.gmm(hid, wd), lambda: ref.gmm_ref(hid, wd),
+                 lambda: torch.bmm(hid, wd32))):
+            bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+            by = "operations" if flops / PEAK_BF16 >= nbytes / PEAK_BW else "bytes"
+            lib_name = "two torch.bmm" if "gated" in label else "torch.bmm"
+            print(f"[kernels] gmm {label}: kernel {cuda_ms(kern, 10):.4f} ms "
+                  f"(device {fmt_ms(device_ms(kern, 5))}), plain "
+                  f"{cuda_ms(plain, 2, warmup=1):.4f} ms, {lib_name} f32 "
+                  f"{cuda_ms(lib, 5):.4f} ms, bound {bound:.4f} ms ({by}; "
+                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        del xe, wg, wu, wd, hid, x3, wg32, wu32, wd32
+        torch.cuda.empty_cache()
     for rec in (flash, decode, ssd, gmm_rec, gated_rec):
         t_ops, t_bytes = rec["flops"] / PEAK_BF16, rec["bytes"] / PEAK_BW
         rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
@@ -1233,14 +1355,18 @@ def phase_serving_mamba2(seed):
     return launches
 
 
-def moe_input(cfg, p, h, pos, opts):
-    """An attention + MoE block up to its MoE layer: (h after attention,
-    the MoE layer's input), as ``blocks.apply_block_full`` computes them."""
-    from repro_torch.models import attention, common
+def mixed(cfg, kind, p, h, pos, opts):
+    """A block up to its FFN: (h after the mixer, the FFN's input), as
+    ``blocks.apply_block_full`` computes them."""
+    from repro_torch.models import attention, common, ssm
     hn = common.apply_norm(cfg, p["ln1"], h)
-    h = h + attention.self_attention(cfg, p["attn"], hn, pos, window=opts.window,
-                                     attn_chunk=opts.attn_chunk,
-                                     use_kernels=opts.use_kernels)
+    if kind[0] == "attn":
+        h = h + attention.self_attention(cfg, p["attn"], hn, pos,
+                                         window=opts.window,
+                                         attn_chunk=opts.attn_chunk,
+                                         use_kernels=opts.use_kernels)
+    else:
+        h = h + ssm.ssd_forward(cfg, p["ssm"], hn, use_kernels=opts.use_kernels)
     return h, common.apply_norm(cfg, p["ln2"], h)
 
 
@@ -1252,72 +1378,84 @@ def expert_sets(cfg, p, x):
     return ffn._route(cfg, logits)[0] > 0
 
 
-def check_moe_prefill(params, cfg, toks):
-    """deepseek's prefill through the grouped matmul against the plain
-    expert FFN on the same weights (see the module docstring)."""
+def check_layers(params, cfg, toks):
+    """A MoE model's prefill, layer by layer: each SSD and each MoE layer
+    on the plain stack's input, kernel against plain (see the module
+    docstring), and the two stacks' routing as their hidden states drift
+    apart."""
     import torch
     from repro_torch import models
-    from repro_torch.models import CallOpts, blocks, ffn, lm
+    from repro_torch.models import CallOpts, blocks, common, ffn, lm, ssm
 
     kern, plain = CallOpts(use_kernels=True), CallOpts()
     B, L = toks.shape
     got, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, kern)
     want, _ = models.prefill(params, cfg, {"tokens": toks}, 1024, plain)
     whole = errors(got, want)[1]
-    # layer by layer: each MoE layer on the plain stack's input, and the
-    # two stacks' routing as their hidden states drift apart
+    del got, want
     pos = torch.arange(L, dtype=torch.int32, device=toks.device)
     h = hk = lm._embed(cfg, params, toks, pos)
-    worst, flips, pairs = [], 0, 0
+    worst, flips, pairs = {"ssm": [], "moe": []}, 0, 0
     for kind, p in zip(blocks.layer_kinds(cfg), params["layers"]):
+        if kind[0] == "ssm":
+            hn = common.apply_norm(cfg, p["ln1"], h)
+            worst["ssm"].append(errors(
+                ssm.ssd_forward(cfg, p["ssm"], hn, use_kernels=True),
+                ssm.ssd_forward(cfg, p["ssm"], hn))[1])
         if kind[1] != "moe":
             h = blocks.apply_block_full(cfg, kind, p, h, pos, plain)[0]
             hk = blocks.apply_block_full(cfg, kind, p, hk, pos, kern)[0]
             continue
-        h, x = moe_input(cfg, p, h, pos, plain)
-        hk, xk = moe_input(cfg, p, hk, pos, kern)
+        h, x = mixed(cfg, kind, p, h, pos, plain)
+        hk, xk = mixed(cfg, kind, p, hk, pos, kern)
         y = ffn.moe_ffn(cfg, p["moe"], x)[0]
-        worst.append(errors(ffn.moe_ffn(cfg, p["moe"], x, use_kernels=True)[0],
-                            y)[1])
+        worst["moe"].append(errors(ffn.moe_ffn(cfg, p["moe"], x,
+                                               use_kernels=True)[0], y)[1])
         h = h + y
         hk = hk + ffn.moe_ffn(cfg, p["moe"], xk, use_kernels=True)[0]
         flips += int((expert_sets(cfg, p, x) != expert_sets(cfg, p, xk))
                      .any(-1).sum())
         pairs += B * L
-    print(f"[serving] {cfg.name} each MoE layer on the plain stack's input, "
-          f"bf16, gmm vs plain expert FFN: max rel err {max(worst):.3g}, "
-          f"median {statistics.median(worst):.3g} over {len(worst)} layers "
-          f"(tol {SERVE_TOL})")
+    for name, what in (("ssm", "SSM output, ssd_chunk_scan vs plain scan"),
+                       ("moe", "MoE layer, gmm vs plain expert FFN")):
+        if worst[name]:
+            print(f"[serving] {cfg.name} each {what} on the plain stack's "
+                  f"input, bf16 B={B} L={L}: max rel err "
+                  f"{max(worst[name]):.3g}, median "
+                  f"{statistics.median(worst[name]):.3g} over "
+                  f"{len(worst[name])} layers (tol {SERVE_TOL})")
     print(f"[serving] {cfg.name} prefill logits B={B} L={L} bf16, whole "
-          f"stacks: gmm vs plain max rel err {whole:.3g} (reported, not "
+          f"stacks: kernels vs plain max rel err {whole:.3g} (reported, not "
           f"held); (layer, token) pairs whose top-{cfg.moe.experts_per_token}"
           f" expert set differs between the two stacks: {flips} of {pairs}")
-    if not max(worst) <= SERVE_TOL:
-        raise AssertionError(f"{cfg.name} MoE layer output rel err "
-                             f"{max(worst)} > {SERVE_TOL}")
+    errs = worst["ssm"] + worst["moe"]
+    if not worst["moe"] or not max(errs) <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name} layer outputs rel err "
+                             f"{max(errs, default=None)} > {SERVE_TOL}")
 
 
-def check_moe_f32(cfg, seed, toks):
-    """A full-width stack cut to its first 4 layers (one dense, three MoE)
-    with fresh f32 weights from ``seed``: forward logits through the
-    kernels against the plain versions (<= 1e-4)."""
+def check_f32_cut(cfg, seed, toks, n_layers):
+    """A full-width stack cut to its first ``n_layers`` layers with fresh
+    f32 weights from ``seed``: forward logits through the kernels against
+    the plain versions (<= 1e-4)."""
     import dataclasses
     from repro_torch import models
-    from repro_torch.models import CallOpts
-    c4 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
-    p4 = models.init_params(c4, seed=seed, device="cuda")
-    got, gaux = models.forward(p4, c4, {"tokens": toks},
+    from repro_torch.models import CallOpts, blocks
+    cut = dataclasses.replace(cfg, num_layers=n_layers, dtype="float32")
+    p = models.init_params(cut, seed=seed, device="cuda")
+    got, gaux = models.forward(p, cut, {"tokens": toks},
                                CallOpts(use_kernels=True))
-    want, waux = models.forward(p4, c4, {"tokens": toks}, CallOpts())
+    want, waux = models.forward(p, cut, {"tokens": toks}, CallOpts())
     diff, rel = errors(got, want)
     B, L = toks.shape
-    print(f"[serving] {cfg.name} cut to 4 layers, f32 weights, forward "
-          f"logits B={B} L={L}: kernels vs plain max abs err {diff:.3g}, "
-          f"max rel err {rel:.3g} (tol {TOL['float32']}); aux loss "
-          f"{float(gaux):.6f} vs {float(waux):.6f}")
+    kinds = ", ".join(f"{m}/{f}" for m, f, _ in blocks.layer_kinds(cut))
+    print(f"[serving] {cfg.name} cut to {n_layers} layers ({kinds}), f32 "
+          f"weights, forward logits B={B} L={L}: kernels vs plain max abs "
+          f"err {diff:.3g}, max rel err {rel:.3g} (tol {TOL['float32']}); "
+          f"aux loss {float(gaux):.6f} vs {float(waux):.6f}")
     if not rel <= TOL["float32"]:
-        raise AssertionError(f"{cfg.name} 4-layer f32 logits rel err {rel} > "
-                             f"{TOL['float32']}")
+        raise AssertionError(f"{cfg.name} {n_layers}-layer f32 logits rel err "
+                             f"{rel} > {TOL['float32']}")
 
 
 def check_single_group_decode(params, cfg, toks, n_moe):
@@ -1408,167 +1546,114 @@ def check_footprints(engine, cfg, batch):
         raise AssertionError(f"LibHas took a {name} budget below its footprint")
 
 
-def phase_serving_deepseek(seed):
-    """Serve 16 requests of full deepseek-moe-16b in two batches: prompts
-    up to 512 (capacity 64) and up to 437 (capacity 56, 448 rows an
-    expert). Returns the launch counts."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import ARCHS
+def kernel_table():
+    """(module, wrapper, its launch counter, plain version) of each kernel
+    of ``KERNELS``, in that order."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ss
+    return ((fa, "flash_attention", "launches", ref.flash_attention_ref),
+            (da, "decode_attention", "launches", ref.decode_attention_ref),
+            (ss, "ssd_chunk_scan", "launches", ref.ssd_chunk_scan_ref),
+            (mg, "gmm", "launches", ref.gmm_ref),
+            (mg, "gmm_gated", "gated_launches", ref.gmm_gated_ref))
+
+
+def step_launches(cfg):
+    """Each kernel's launches (in the order of ``KERNELS``) in one prefill
+    and in one decode step of ``cfg``: a prefill launches flash once an
+    attention layer (an encoder-decoder's also once an encoder layer), the
+    SSD scan once an SSD layer and the grouped matmuls once each a MoE
+    layer (``gmm_gated`` for gate and up, ``gmm`` for down); a decode step
+    decode_attention once an attention layer and the grouped matmuls."""
     from repro_torch.models import blocks
-
-    cfg = ARCHS["deepseek-moe-16b"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"[serving] before {cfg.name}: "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    gw, engine, vgpu, record = serving_pod(cfg, "fn-deepseek", seed, 1.0)
-    n_moe = sum(f == "moe" for _, f, _ in blocks.layer_kinds(cfg))
-    rng = np.random.default_rng(seed + 2)
-    per_step = {"prefill": [], "decode": []}
-
-    def counted(fn, key):
-        def run(*args):
-            before = (mg.launches, mg.gated_launches, fa.launches,
-                      da.launches)
-            out = fn(*args)
-            per_step[key].append((mg.launches - before[0],
-                                  mg.gated_launches - before[1],
-                                  fa.launches - before[2],
-                                  da.launches - before[3]))
-            return out
-        return run
-
-    engine._prefill = counted(engine._prefill, "prefill")
-    engine._decode = counted(engine._decode, "decode")
-
-    def prompts(lo, hi, longest):
-        lengths = rng.integers(lo, hi + 1, size=8)
-        lengths[int(rng.integers(8))] = longest
-        return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
-                for n in lengths]
-
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = da.launches = ss.launches = mg.launches = 0
-    mg.gated_launches = 0
-    lat = [serve(gw, "fn-deepseek", cfg, prompts(64, 512, 512)),
-           serve(gw, "fn-deepseek", cfg, prompts(64, 437, 437))]
-    launches = {"flash_attention": fa.launches,
-                "decode_attention": da.launches,
-                "ssd_chunk_scan": ss.launches, "gmm": mg.launches,
-                "gmm_gated": mg.gated_launches}
-    n_pre, n_dec = len(record["prefill"]), len(record["decode"])
-    check_finite(record)
-    L_ = cfg.num_layers
-    want = {"flash_attention": L_ * n_pre, "decode_attention": L_ * n_dec,
-            "ssd_chunk_scan": 0, "gmm": n_moe * (n_pre + n_dec),
-            "gmm_gated": n_moe * (n_pre + n_dec)}
-    # 2 grouped-matmul launches a MoE layer a step: gmm_gated (gate and
-    # up), gmm (down)
-    if (launches != want or record["prefill_len"] != [512, 437]
-            or set(per_step["prefill"]) != {(n_moe, n_moe, L_, 0)}
-            or set(per_step["decode"]) != {(n_moe, n_moe, 0, L_)}):
-        raise AssertionError(f"kernel launches {launches}, want {want}; per "
-                             f"step (gmm, gmm_gated, flash, decode) "
-                             f"{sorted(set(per_step['prefill']))} a prefill "
-                             f"at lengths {record['prefill_len']}, "
-                             f"{sorted(set(per_step['decode']))} a decode")
-    print(f"[serving] {n_pre} prefills at lengths {record['prefill_len']}, "
-          f"{n_dec} decode steps; launches {launches}; every prefill and "
-          f"decode step launched gmm_gated and gmm {n_moe} times each (2 x "
-          f"{n_moe} MoE layers) and its attention kernel {L_} times")
-    print(f"[serving] per-request wall time at quota 1.0: "
-          + ", ".join(f"{t * 1e3:.1f} ms (batch {i + 1})"
-                      for i, t in enumerate(lat)))
-    print(f"[serving] prefill step ms: "
-          + ", ".join(f"{ms:.2f} (L={n})" for ms, n in
-                      zip(record["prefill"], record["prefill_len"]))
-          + f"; decode step ms (median of {n_dec}): "
-          f"{statistics.median(record['decode']):.2f}")
-    print(f"[serving] torch.cuda.max_memory_allocated: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
-                           device="cuda")
-    check_moe_prefill(engine.params, cfg, toks)
-    check_single_group_decode(engine.params, cfg, toks, n_moe)
-    check_footprints(engine, cfg, {"tokens": toks})
-    profile_steps(engine, cfg, {"tokens": toks}, record)
-    del gw, engine
-    gc.collect()
-    torch.cuda.empty_cache()
-    check_moe_f32(cfg, seed, toks)
-    return launches
+    kinds = blocks.layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _, _ in kinds)
+    n_moe = sum(f == "moe" for _, f, _ in kinds)
+    n_enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    return {"prefill": (n_attn + n_enc, 0, len(kinds) - n_attn, n_moe, n_moe),
+            "decode": (0, n_attn, 0, n_moe, n_moe)}
 
 
-def check_flash_layers(engine, cfg, batch):
-    """Each flash launch of a prefill through the kernels, held against
-    the kernel's plain version on the same inputs (bf16, <= SERVE_TOL):
-    the wrapper below returns the plain result, so every layer's attention
-    sees the input of the stack with plain attention cores."""
+def check_launches(engine, cfg, batch, want):
+    """Each kernel launch of one prefill and of the decode step after it,
+    held against the kernel's plain version on the same inputs (bf16, <=
+    SERVE_TOL): ``holding`` returns the plain result, so every launch sees
+    the input of the stack with plain kernels. Holds each kernel's number
+    of launches in each step to ``want``."""
     from repro_torch import models
-    from repro_torch.kernels import flash_attention as fa, ref
-    from repro_torch.models import CallOpts, attention
-    worst = []
-    kernel = fa.flash_attention
+    from repro_torch.models import CallOpts
+    cases = [(mod, name, plain) for mod, name, _, plain in kernel_table()]
+    opts = CallOpts(use_kernels=True)
+    params, toks = engine.params, batch["tokens"]
+    B, L = toks.shape
+    with holding(cases) as seen:
+        _, cache = models.prefill(params, cfg, batch, engine.max_seq, opts)
+    steps = {"prefill": seen}
+    with holding(cases) as seen:
+        models.decode_step(params, cfg, toks[:, -1:],
+                           (cfg.num_visual_tokens or 0) + L, cache, opts=opts)
+    steps["decode"] = seen
+    for key, seen in steps.items():
+        got = tuple(len(seen[name]) for name in KERNELS)
+        for name, runs in seen.items():
+            if not runs:
+                continue
+            errs = [e for _, e in runs]
+            shapes = ", ".join(f"{a} {b}" for a, b in sorted({s for s, _ in runs}))
+            print(f"[serving] {cfg.name} {key} B={B} L={L}{prefix_note(cfg)}: "
+                  f"{name}, {len(runs)} launches at inputs {shapes}, kernel "
+                  f"vs plain on the same inputs, bf16 model: max rel err "
+                  f"{max(errs):.3g}, median {statistics.median(errs):.3g} "
+                  f"(tol {SERVE_TOL})")
+            if not max(errs) <= SERVE_TOL:
+                raise AssertionError(f"{cfg.name} {key} {name} rel err "
+                                     f"{max(errs)} > {SERVE_TOL}")
+        if got != want[key]:
+            raise AssertionError(f"{cfg.name} held {key}: launches {got} of "
+                                 f"{KERNELS}, want {want[key]}")
 
-    def both(q, k, v, *, causal=True, window=0):
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-        worst.append((errors(kernel(q, k, v, causal=causal, window=window),
-                             want)[1], causal))
-        return want
 
-    attention.fa.flash_attention = both
-    try:
-        models.prefill(engine.params, cfg, batch, engine.max_seq,
-                       CallOpts(use_kernels=True))
-    finally:
-        attention.fa.flash_attention = kernel
-    errs = [e for e, _ in worst]
-    B, L = batch["tokens"].shape
-    kinds = sorted({"causal" if c else "non-causal" for _, c in worst})
-    print(f"[serving] {cfg.name} each flash launch of a prefill B={B} L={L}"
-          f"{prefix_note(cfg)} ({len(errs)}: {' and '.join(kinds)}), kernel "
-          f"vs plain on the same input, bf16: max rel err {max(errs):.3g}, "
-          f"median {statistics.median(errs):.3g} (tol {SERVE_TOL})")
-    if not max(errs) <= SERVE_TOL:
-        raise AssertionError(f"{cfg.name} flash layer rel err {max(errs)} > "
-                             f"{SERVE_TOL}")
-
-
-def phase_serving_family(seed, arch, batch, max_seq, batches, check_rows):
-    """Serve one batch of requests per entry of ``batches`` (the prompt
-    lengths: ``(lo, hi, longest)``) of the full-width, full-depth ``arch``,
-    each step's flash and decode launches counted; then the checks of the
-    module docstring. Returns the launch counts."""
+def phase_serving_model(seed, index, spec):
+    """Serve one batch of ``spec.batch`` requests per entry of
+    ``spec.batches`` (prompt lengths ``(lo, hi, longest)``) of
+    ``spec.arch`` at full width (its first ``spec.layers`` layers, or
+    all), each step's launches of every kernel counted; then the checks of
+    the module docstring. Returns the launch counts."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
 
-    cfg = ARCHS[arch]
+    cfg = ARCHS[spec.arch]
+    if spec.layers is not None:
+        print(f"[serving] {cfg.name}: {cfg.num_layers} layers, "
+              f"{cfg.param_count() * 2 / 2**30:.1f} GiB of bf16 weights, "
+              f"more than one card holds; served at full width, its first "
+              f"{spec.layers} layers")
+        cfg = dataclasses.replace(cfg, num_layers=spec.layers)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[serving] before {cfg.name}: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
-    fn_id = f"fn-{arch}"
-    gw, engine, vgpu, record = serving_pod(cfg, fn_id, seed, 1.0, batch,
-                                           max_seq)
-    rng = np.random.default_rng(seed + len(arch))
+    fn_id = f"fn-{cfg.name}"
+    gw, engine, vgpu, record = serving_pod(cfg, fn_id, seed, 1.0, spec.batch,
+                                           spec.max_seq)
+    rng = np.random.default_rng(seed + 2 + index)
+    counters = [(mod, counter) for mod, _, counter, _ in kernel_table()]
+    want = step_launches(cfg)
     per_step = {"prefill": [], "decode": []}
 
     def counted(fn, key):
         def run(*args):
-            before = fa.launches, da.launches
+            for mod, attr in counters:
+                setattr(mod, attr, 0)
             out = fn(*args)
-            per_step[key].append((fa.launches - before[0],
-                                  da.launches - before[1]))
+            per_step[key].append(tuple(getattr(mod, attr)
+                                       for mod, attr in counters))
             return out
         return run
 
@@ -1576,38 +1661,32 @@ def phase_serving_family(seed, arch, batch, max_seq, batches, check_rows):
     engine._decode = counted(engine._decode, "decode")
 
     def prompts(lo, hi, longest):
-        lengths = rng.integers(lo, hi + 1, size=batch)
-        lengths[int(rng.integers(batch))] = longest
+        lengths = rng.integers(lo, hi + 1, size=spec.batch)
+        lengths[int(rng.integers(spec.batch))] = longest
         return [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
                 for n in lengths]
 
-    fa.launches = da.launches = 0
-    lat = [serve(gw, fn_id, cfg, prompts(*b)) for b in batches]
-    launches = {"flash_attention": fa.launches,
-                "decode_attention": da.launches}
+    lat = [serve(gw, fn_id, cfg, prompts(*b)) for b in spec.batches]
+    steps = per_step["prefill"] + per_step["decode"]
+    launches = {n: sum(step[i] for step in steps)
+                for i, n in enumerate(KERNELS)}
     n_pre, n_dec = len(record["prefill"]), len(record["decode"])
     check_finite(record)
-    # an encoder-decoder's prefill runs the encoder (non-causal) and the
-    # decoder (causal) through flash; decode runs the decoder
-    n_flash = cfg.num_layers + (cfg.encoder_layers
-                                if cfg.is_encoder_decoder else 0)
-    want = {"flash_attention": n_flash * n_pre,
-            "decode_attention": cfg.num_layers * n_dec}
-    longest = [b[2] for b in batches]
-    if (launches != want or record["prefill_len"] != longest
-            or set(per_step["prefill"]) != {(n_flash, 0)}
-            or set(per_step["decode"]) != {(0, cfg.num_layers)}):
-        raise AssertionError(f"kernel launches {launches}, want {want}; per "
-                             f"step (flash, decode) "
+    longest = [b[2] for b in spec.batches]
+    if (record["prefill_len"] != longest or not n_dec
+            or any(set(per_step[k]) != {want[k]} for k in want)):
+        raise AssertionError(f"kernel launches a step {KERNELS}: "
                              f"{sorted(set(per_step['prefill']))} a prefill "
                              f"at lengths {record['prefill_len']}, "
-                             f"{sorted(set(per_step['decode']))} a decode")
+                             f"{sorted(set(per_step['decode']))} a decode; "
+                             f"want {want}")
     v = cfg.num_visual_tokens or 0
     print(f"[serving] {n_pre} prefills at text lengths "
           f"{record['prefill_len']}{prefix_note(cfg)}, {n_dec} decode steps "
           f"(from position {', '.join(str(v + n) for n in longest)}); "
-          f"launches {launches}; every prefill launched flash {n_flash} times"
-          f" and every decode step decode_attention {cfg.num_layers} times")
+          f"launches {launches}; each step's counts (reset just before it, "
+          f"read just after) {KERNELS}: every prefill {want['prefill']}, "
+          f"every decode step {want['decode']}")
     print(f"[serving] per-request wall time at quota 1.0: "
           + ", ".join(f"{t * 1e3:.1f} ms (batch {i + 1})"
                       for i, t in enumerate(lat)))
@@ -1619,17 +1698,29 @@ def phase_serving_family(seed, arch, batch, max_seq, batches, check_rows):
     print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
           f"run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    served = served_batch(engine, cfg, rng, batch, longest[0])
+    served = served_batch(engine, cfg, rng, spec.batch, longest[0])
+    rows = served_batch(engine, cfg, rng, spec.rows, longest[0])
+    if want["prefill"][3]:
+        # routing flips between the two stacks: the layers are held, the
+        # whole stacks' logits printed
+        check_layers(engine.params, cfg, rows["tokens"])
+    else:
+        check_prefill_logits(engine, cfg, rows)
+    check_launches(engine, cfg, rows, want)
+    if spec.single_group:
+        check_single_group_decode(engine.params, cfg, rows["tokens"],
+                                  want["decode"][3])
     check_footprints(engine, cfg, served)
     profile_steps(engine, cfg, served, record)
-    rows = served_batch(engine, cfg, rng, check_rows, longest[0])
-    check_flash_layers(engine, cfg, rows)
-    check_prefill_logits(engine, cfg, rows)
     print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
           f"phase: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del gw, engine, served, rows
+    del gw, engine, served
     gc.collect()
     torch.cuda.empty_cache()
+    if spec.f32_cut:
+        check_f32_cut(cfg, seed, rows["tokens"], spec.f32_cut)
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2906,14 +2997,9 @@ def main(argv=None):
     launches = phase_serving(args.seed)
     launches["ssd_chunk_scan"] = phase_serving_mamba2(args.seed)[
         "ssd_chunk_scan"]
-    moe = phase_serving_deepseek(args.seed)
-    launches["gmm"], launches["gmm_gated"] = moe["gmm"], moe["gmm_gated"]
-    for kernel in ("flash_attention", "decode_attention"):
-        launches[kernel] += moe[kernel]
-    for arch, batch, max_seq, batches, rows in FAMILIES:
-        counts = phase_serving_family(args.seed, arch, batch, max_seq,
-                                      batches, rows)
-        for kernel, n in counts.items():
+    launches["gmm"] = launches["gmm_gated"] = 0
+    for index, spec in enumerate(SERVED):
+        for kernel, n in phase_serving_model(args.seed, index, spec).items():
             launches[kernel] += n
     for kernel, n in phase_calibrate(args.seed).items():
         launches[kernel] += n

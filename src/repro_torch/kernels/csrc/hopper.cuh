@@ -4,11 +4,12 @@
 // votes, and the host-side encoding of TMA tensor maps. Raw PTX, so that
 // a source builds in seconds.
 //
-// Layout convention: every tile that TMA brings in is a box whose inner
+// Layout convention: a tile that TMA brings in is a box whose inner
 // dimension is 128 bytes (64 bf16 or 32 f32), stored with the 128-byte
 // swizzle (the 16-byte chunk index of a 128-byte row XOR the row index mod
 // 8), at a 1024-byte aligned address; the wgmma descriptors below read
-// that layout.
+// that layout. The SSD scan's state-16 tiles are 32 bytes wide, under the
+// 32-byte swizzle (`desc_sw32`).
 #pragma once
 
 #include <cuda.h>
@@ -273,11 +274,42 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// Descriptor of a 32-byte-swizzled operand (rows of 16 bf16, the 16-byte
+// chunk index XOR bit 2 of the row index) at shared address `addr`,
+// aligned to 256 bytes. K-major (16 bf16 along K a row): one k-step, sbo =
+// 256, the stride of 8 rows. N-major (16 bf16 along N a row, one row per
+// k): sbo = 256, the stride of 8 k-rows; a step of 16 along K adds 512
+// bytes; lbo, the stride between 16-wide column blocks, unused at N = 16.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
+}
+
 // The wgmma wrappers below are overloaded on the accumulator's size:
-// float[32] is the m64n64k16 instruction, float[64] m64n128k16.
+// float[8] is the m64n16k16 instruction, float[32] m64n64k16, float[64]
+// m64n128k16.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 16, f32) += A (64 x 16, bf16 fragments in registers, the
+// mma.sync m16n8k16 A layout in each warp's 16 rows) B (16 x 16, shared
+// memory through a descriptor); TB = 1: B is N-major (transposed)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 fragments in registers, the
@@ -413,14 +445,16 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A tiled, 128-byte-swizzled map over a tensor of `rank` dims, innermost
-// first: `dims` in elements, `strides` in bytes of dims 1..rank-1 (each a
-// multiple of 16), `box` in elements (box[0] * element size = 128 bytes
-// at most). Out-of-range elements of a box read as zero. False if the
-// encoding is refused.
+// A tiled, swizzled map (128-byte swizzle unless `swizzle` says otherwise)
+// over a tensor of `rank` dims, innermost first: `dims` in elements,
+// `strides` in bytes of dims 1..rank-1 (each a multiple of 16), `box` in
+// elements (box[0] * element size at most the swizzle's width: 128 bytes,
+// or 32 for CU_TENSOR_MAP_SWIZZLE_32B). Out-of-range elements of a box
+// read as zero. False if the encoding is refused.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                      const void* base, const uint64_t* dims,
-                     const uint64_t* strides, const uint32_t* box) {
+                     const uint64_t* strides, const uint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
@@ -428,7 +462,7 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
             reinterpret_cast<const cuuint64_t*>(dims),
             reinterpret_cast<const cuuint64_t*>(strides),
             reinterpret_cast<const cuuint32_t*>(box), elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

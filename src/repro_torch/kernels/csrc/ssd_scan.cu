@@ -18,13 +18,16 @@
 // the card's ~295, so the bound is bytes; the operations need the tensor
 // cores to stay near it.
 //
-// Three kernels, chosen by type and shape:
-// - bf16 at head_dim 64, state 128 (mamba2-2.7b, the served shape):
-//   `ssd_scan_wgmma`, warp-specialised, TMA-fed, on wgmma (see its
-//   comment below). It reads each tile once a 256-row sub-chunk and keeps
-//   the state in accumulator registers.
-// - bf16 at the other shapes ((32, 64), (64, 16), (32, 16): the reduced
-//   mamba2 and jamba-v0.1-52b): `ssd_scan_bf16` on mma.sync, below.
+// Four kernels, chosen by type and shape:
+// - bf16 at head_dim 64, state 128 (mamba2-2.7b): `ssd_scan_wgmma`,
+//   warp-specialised, TMA-fed, on wgmma (see its comment below). It reads
+//   each tile once a 256-row sub-chunk and keeps the state in accumulator
+//   registers.
+// - bf16 at head_dim 64, state 16 (jamba-v0.1-52b): `ssd_scan_wgmma16`,
+//   persistent and TMA-fed on wgmma, one warpgroup a (batch, head) pair
+//   in 64-row blocks (see its comment below).
+// - bf16 at the reduced configs' shapes ((32, 64), (32, 16)):
+//   `ssd_scan_bf16` on mma.sync, below.
 // - f32: `ssd_scan_f32` on FMAs.
 //
 // The two older kernels: one block per (batch, head) walks the chunks in
@@ -48,7 +51,7 @@
 // the tensor cores, which keeps about 16 bits of it and doubles those
 // three products. Rounded to bf16 once (8 bits), the output erred by ~3e-3
 // of its largest value; split, by ~1e-5, as an f32 sum taken in another
-// order does. The wgmma kernel keeps the same split.
+// order does. The wgmma kernels keep the same split.
 // `ssd_scan_f32`: the products as f32 FMAs from shared memory (the tensor
 // cores would round f32 inputs past the 1e-4 tolerance).
 #include <cuda_bf16.h>
@@ -911,47 +914,352 @@ ssd_scan_wgmma(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ---------------------------------------------------------------- bf16, wgmma, state 16
+
+// jamba-v0.1-52b's shape (head_dim 64, state 16) in bf16. At N = 16 a row
+// of B, C or the state is 32 bytes and the whole state of a (batch, head)
+// pair is one m64n16 accumulator, 8 registers a thread, so one warpgroup
+// owns whole pairs: a block is one warpgroup, three blocks share an SM,
+// and each walks its pairs (blockIdx.x, + gridDim.x, ...) persistently.
+// Each chunk is walked in blocks of BT = 64 rows (the chunked scan is
+// exact for any chunk length; the sums only take another order): at N =
+// 16 the causal P x dominates the arithmetic, and 64-row blocks compute
+// one diagonal (query, key) tile a block where 256-row ones compute ten a
+// four tiles, so the tensor-core work falls by half (10.5 of ~13.9 MFLOP
+// a (pair, chunk) of 256 rows was P x; now ~4.2 of ~6.8) and so do the
+// decay's exponentials. A block's work, an "item":
+//  1. dt, cum = cumsum(dA) (warp 0, two rows a lane), w = dt exp(total -
+//     cum) and exp(total) into shared memory, cum in log2 units;
+//  2. the state, split into bf16 hi and lo parts, into shared memory
+//     (K-major, 32-byte swizzle), then one block barrier;
+//  3. y = C h_hi^T + C h_lo^T and S = C B^T (SS wgmma, one k-step each:
+//     C, B and h are K-major under the 32-byte swizzle); y's rows scaled
+//     by exp(cum), exp(segsum) dt and the causal mask applied to S in
+//     registers (the mask before the exp), P split hi/lo;
+//  4. y += P x (RS, x N-major under the 128-byte swizzle) and the state
+//     h <- exp(total) h + (x w)^T B (RS m64n16: the A fragments of
+//     (x w)^T by ldmatrix.trans from the x tile, scaled by w and split
+//     hi/lo; B N-major under the 32-byte swizzle), issued together and
+//     waited once; y stored as f32.
+// Thread 0 loads each item's C, B (64 x 16, 32-byte swizzle) and x (64 x
+// 64) by TMA into a ring of STAGES stages, STAGES - 1 items ahead; an
+// item's barrier frees the stage of the one before. The state's smem copy
+// and the scalars alternate between two buffers, so that one barrier an
+// item orders them. dt and dA are read an item ahead. As in the other
+// bf16 kernels, every product with an operand made in f32 is issued on
+// its hi and its lo part, and the decay's exp is one `ex2`.
+namespace wg16 {
+constexpr int HD = 64, N = 16;
+constexpr int NT = 128;                       // one warpgroup a block
+constexpr int BLOCKS_PER_SM = 3;
+constexpr int STAGES = 4;
+constexpr int BC_TILE = BT * N * 2;           // a C or B tile: 64 rows of 32 bytes
+constexpr int X_TILE = BT * HD * 2;           // an x tile: 64 rows of 128 bytes
+constexpr int STAGE = 2 * BC_TILE + X_TILE;   // C, B, x of one item
+constexpr int HPART = HD * N * 2;             // the state's hi or lo part
+// byte offsets from a 1024-aligned base
+constexpr int ST = STAGES * STAGE;            // two buffers of (hi, lo)
+constexpr int SC = ST + 4 * HPART;            // two buffers of the scalars
+constexpr int SC_BUF = 3 * BT + 4;            // dt, cum, w and exp(total), floats
+constexpr int BARS = SC + 2 * SC_BUF * 4;
+constexpr int TOTAL = BARS + 8 * STAGES + 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+}  // namespace wg16
+
+__global__ void __launch_bounds__(wg16::NT, wg16::BLOCKS_PER_SM)
+ssd_scan_wgmma16(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap bmap,
+                 const __grid_constant__ CUtensorMap cmap, Args a, int n_bh,
+                 int swap) {
+  using namespace wg16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(sm);
+  auto full = [&](int s) { return base + BARS + 8u * s; };
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int nb = (a.Q + BT - 1) / BT;  // 64-row blocks a chunk
+  const int per_pair = a.nc * nb;
+  const int n_items = (n_bh - (int)blockIdx.x + (int)gridDim.x - 1) /
+                      (int)gridDim.x * per_pair;
+
+  // item j: pair bh, chunk c, rows [r0, r0 + 64) of the chunk
+  auto locate = [&](int j, int& bh, int& c, int& r0) {
+    const int k = j % per_pair;
+    bh = blockIdx.x + (j / per_pair) * gridDim.x;
+    c = k / nb;
+    r0 = (k % nb) * BT;
+  };
+  auto issue = [&](int j) {  // item j's tiles into stage j % STAGES
+    int bh, c, r0;
+    locate(j, bh, c, r0);
+    const int h = bh % a.nh, b = bh / a.nh, g = h / (a.nh / a.G);
+    const int s = j % STAGES;
+    // (chunk, batch) in the order of the maps' strides
+    const int c3 = swap ? b : c, c4 = swap ? c : b;
+    const uint32_t st = base + s * STAGE;
+    mbar_expect_tx(full(s), STAGE);
+    tma_load_5d(st, &cmap, full(s), 0, g, r0, c3, c4);
+    tma_load_5d(st + BC_TILE, &bmap, full(s), 0, g, r0, c3, c4);
+    tma_load_5d(st + 2 * BC_TILE, &xmap, full(s), 0, h, r0, c3, c4);
+  };
+  if (tid == 0) {
+    prefetch_map(&xmap);
+    prefetch_map(&bmap);
+    prefetch_map(&cmap);
+    for (int s = 0; s < STAGES; ++s) mbar_init(full(s), 1);
+    mbar_init_fence();
+    for (int j = 0; j < min(STAGES - 1, n_items); ++j) issue(j);
+  }
+  __syncthreads();
+
+  // warp 0: dt and dA of rows 2 lane and 2 lane + 1 of item j
+  float pdt[2], pda[2];
+  auto fetch = [&](int j) {
+    int bh, c, r0;
+    locate(j, bh, c, r0);
+    const int h = bh % a.nh, b = bh / a.nh;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long r = r0 + 2 * lane + e;
+      pdt[e] = pda[e] = 0.f;
+      if (r < a.Q) {
+        pdt[e] = a.dt[c * a.sdt.c + b * a.sdt.b + r * a.sdt.q + h];
+        pda[e] = a.dA[c * a.sdA.c + b * a.sdA.b + r * a.sdA.q + h];
+      }
+    }
+  };
+  if (warp == 0) fetch(0);
+
+  // the state of the current pair: row p = 16 warp + gq + 8 hh, column
+  // 8 nn + 2 tq + e in hs[4 nn + 2 hh + e]
+  float hs[8];
+  for (int j = 0; j < n_items; ++j) {
+    int bh, c, r0;
+    locate(j, bh, c, r0);
+    const int h = bh % a.nh, b = bh / a.nh, k = j % per_pair;
+    const int Qb = min(BT, a.Q - r0);
+    float* dts = reinterpret_cast<float*>(sm + SC) + (j & 1) * SC_BUF;
+    float* cum = dts + BT;
+    float* ws = cum + BT;
+    const uint32_t hh = base + ST + (j & 1) * 2 * HPART, hl = hh + HPART;
+    if (k == 0) {
+      const float* h0 = a.h0 + (long long)bh * HD * N;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              h0 + (16 * warp + gq + 8 * r) * N + 8 * nn + 2 * tq);
+          hs[4 * nn + 2 * r] = v.x;
+          hs[4 * nn + 2 * r + 1] = v.y;
+        }
+    }
+    // 1. the scalars
+    if (warp == 0) {
+      float incl = pda[0] + pda[1];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      const float total = __shfl_sync(0xffffffffu, incl, 31);
+      const float cq[2] = {incl - pda[1], incl};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 2 * lane + e;
+        dts[q] = pdt[e];
+        cum[q] = cq[e] * LOG2E;
+        ws[q] = q < Qb ? pdt[e] * exp2f((total - cq[e]) * LOG2E) : 0.f;
+      }
+      if (lane == 0) ws[BT] = exp2f(total * LOG2E);
+      if (j + 1 < n_items) fetch(j + 1);
+    }
+    // 2. the state, hi and lo, K-major under the 32-byte swizzle
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * warp + gq + 8 * r;
+        uint32_t hi, lo;
+        split_f32(hs[4 * nn + 2 * r], hs[4 * nn + 2 * r + 1], hi, lo);
+        const uint32_t off = p * 32 + ((nn ^ ((p >> 2) & 1)) << 4) + 4 * tq;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(hh + off), "r"(hi) : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(hl + off), "r"(lo) : "memory");
+      }
+    fence_proxy_async();
+    __syncthreads();  // every thread is done with item j - 1
+    if (tid == 0 && j + STAGES - 1 < n_items) issue(j + STAGES - 1);
+    const int s = j % STAGES;
+    mbar_wait(full(s), (j / STAGES) & 1);
+    const uint32_t cb = base + s * STAGE, bb = cb + BC_TILE, xb = cb + 2 * BC_TILE;
+
+    // 3. y = C h^T, S = C B^T
+    float acc[32], sc[32];
+    fence_regs(acc);
+    fence_regs(sc);
+    wgmma_fence();
+    wgmma_ss<0>(acc, desc_sw32(cb, 0, 256), desc_sw32(hh, 0, 256), 0);
+    wgmma_ss<0>(acc, desc_sw32(cb, 0, 256), desc_sw32(hl, 0, 256), 1);
+    wgmma_ss<0>(sc, desc_sw32(cb, 0, 256), desc_sw32(bb, 0, 256), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(sc);
+    const int rl[2] = {16 * warp + gq, 16 * warp + gq + 8};
+    const float cr[2] = {cum[rl[0]], cum[rl[1]]};
+    const float ec[2] = {rl[0] < Qb ? ex2(cr[0]) : 0.f, rl[1] < Qb ? ex2(cr[1]) : 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] *= ec[(e >> 1) & 1];
+    // exp(segsum) dt below the diagonal, where exp is taken; 0 above it
+    // (rows past the block are not stored)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * tq;
+      const float2 cc = *reinterpret_cast<const float2*>(cum + col);
+      const float2 dd = *reinterpret_cast<const float2*>(dts + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (e >> 1) & 1;
+        const float cv = (e & 1) ? cc.y : cc.x, dv = (e & 1) ? dd.y : dd.x;
+        sc[4 * n + e] = rl[r] >= col + (e & 1) ? sc[4 * n + e] * ex2(cr[r] - cv) * dv : 0.f;
+      }
+    }
+    // the accumulators of key columns [16kk, 16kk + 16) are the A
+    // fragment of k-step kk, split in two
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        split_f32(sc[8 * kk + 2 * u], sc[8 * kk + 2 * u + 1], ph[kk][u], pl[kk][u]);
+    // A[p][q] = x[q][p] w[q]: matrix i of lanes 8i.. holds rows p of
+    // 16 warp + 8 (i & 1), keys 16 kk + 8 (i >> 1)
+    uint32_t xh[4][4], xl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int mi = lane >> 3, q = 16 * kk + (lane & 7) + 8 * (mi >> 1);
+      const int chk = 2 * warp + (mi & 1);
+      uint32_t raw[4];
+      ldmatrix_x4_trans(raw, xb + q * 128 + ((chk ^ (q & 7)) << 4));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int qk = 16 * kk + 2 * tq + 8 * (u >> 1);
+        split_f32(__uint_as_float(raw[u] << 16) * ws[qk],
+                  __uint_as_float(raw[u] & 0xffff0000u) * ws[qk + 1], xh[kk][u],
+                  xl[kk][u]);
+      }
+    }
+    const float et = ws[BT];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) hs[e] *= et;
+
+    // 4. y += P x; h <- exp(total) h + (x w)^T B
+    fence_regs(acc);
+    fence_regs(hs);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(xh);
+    fence_regs(xl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(acc, ph[kk], desc_sw128(xb + kk * 16 * 128, X_TILE, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(acc, pl[kk], desc_sw128(xb + kk * 16 * 128, X_TILE, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(hs, xh[kk], desc_sw32(bb + kk * 16 * 32, 0, 256), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(hs, xl[kk], desc_sw32(bb + kk * 16 * 32, 0, 256), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(hs);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rl[r] >= Qb) continue;
+      float* yp = a.y + c * a.sy.c + b * a.sy.b + (long long)(r0 + rl[r]) * a.sy.q +
+                  (long long)h * HD + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float2*>(yp + 8 * n) =
+            make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+    if (k == per_pair - 1) {
+      float* ho = a.hout + (long long)bh * HD * N;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(ho + (16 * warp + gq + 8 * r) * N + 8 * nn +
+                                     2 * tq) =
+              make_float2(hs[4 * nn + 2 * r], hs[4 * nn + 2 * r + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <int HD, int N>
-cudaError_t launch(int dtype, const Args& a, int blocks, cudaStream_t stream) {
-  const size_t scalars = sizeof(float) * 3 * a.Q;
-  if (dtype == 0) {
-    const size_t smem = smem_f32_fixed<HD, N>() + scalars;
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_f32<HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    ssd_scan_f32<HD, N><<<blocks, NTF, smem, stream>>>(a);
-  } else {
-    const size_t smem = smem_bf16_fixed<HD, N>() + scalars;
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_bf16<HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    ssd_scan_bf16<HD, N><<<blocks, NTH, smem, stream>>>(a);
-  }
+cudaError_t launch_f32(const Args& a, int blocks, cudaStream_t stream) {
+  const size_t smem = smem_f32_fixed<HD, N>() + sizeof(float) * 3 * a.Q;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_f32<HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_scan_f32<HD, N><<<blocks, NTF, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int HD, int N>
+cudaError_t launch_bf16(const Args& a, int blocks, cudaStream_t stream) {
+  const size_t smem = smem_bf16_fixed<HD, N>() + sizeof(float) * 3 * a.Q;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_bf16<HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bf16<HD, N><<<blocks, NTH, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the 5-D TMA map of x, B or C (inner elements, heads or groups, rows, then
+// chunk and batch in the order of their strides, as the caller's views
+// have them), boxes of 64 rows of `box_inner` elements
+bool scan_map(CUtensorMap* m, const void* p, int inner, int heads,
+              const Strides& st, const Args& a, int batch, int swap,
+              int box_inner, CUtensorMapSwizzle swizzle) {
+  const uint64_t d[5] = {(uint64_t)inner, (uint64_t)heads, (uint64_t)a.Q,
+                         (uint64_t)(swap ? batch : a.nc),
+                         (uint64_t)(swap ? a.nc : batch)};
+  const uint64_t str[4] = {(uint64_t)inner * 2, (uint64_t)st.q * 2,
+                           (uint64_t)(swap ? st.b : st.c) * 2,
+                           (uint64_t)(swap ? st.c : st.b) * 2};
+  const uint32_t box[5] = {(uint32_t)box_inner, 1, BT, 1, 1};
+  return hopper_host::make_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, p, d,
+                               str, box, swizzle);
+}
+
+int sm_count() {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+  }
+  return n_sm;
 }
 
 cudaError_t launch_wgmma(const Args& a, int batch, cudaStream_t stream) {
   using namespace wg;
-  // the maps' dims (inner, heads or groups, row, then chunk and batch in
-  // the order of their strides, as the caller's views have them)
   const int swap = a.sx.c > a.sx.b;
-  auto make = [&](CUtensorMap* m, const void* p, int inner, int heads,
-                  const Strides& st) {
-    const uint64_t d[5] = {(uint64_t)inner, (uint64_t)heads, (uint64_t)a.Q,
-                           (uint64_t)(swap ? batch : a.nc),
-                           (uint64_t)(swap ? a.nc : batch)};
-    const uint64_t str[4] = {(uint64_t)inner * 2, (uint64_t)st.q * 2,
-                             (uint64_t)(swap ? st.b : st.c) * 2,
-                             (uint64_t)(swap ? st.c : st.b) * 2};
-    const uint32_t box[5] = {64, 1, BT, 1, 1};
-    return hopper_host::make_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, p, d,
-                                 str, box);
-  };
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap xm, bm, cm;
-  if (!make(&xm, a.x, HD, a.nh, a.sx) || !make(&bm, a.B, N, a.G, a.sB) ||
-      !make(&cm, a.C, N, a.G, a.sC))
+  if (!scan_map(&xm, a.x, HD, a.nh, a.sx, a, batch, swap, 64, sw) ||
+      !scan_map(&bm, a.B, N, a.G, a.sB, a, batch, swap, 64, sw) ||
+      !scan_map(&cm, a.C, N, a.G, a.sC, a, batch, swap, 64, sw))
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -960,17 +1268,38 @@ cudaError_t launch_wgmma(const Args& a, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
+  const int n_sm = sm_count();
+  if (n_sm == 0) return cudaErrorInvalidDevice;
   // persistent: one block an SM, or one a (batch, head) pair where fewer
   const int n_bh = batch * a.nh;
   ssd_scan_wgmma<<<min(n_bh, n_sm), wg::NTHREADS, TOTAL, stream>>>(
+      xm, bm, cm, a, n_bh, swap);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma16(const Args& a, int batch, cudaStream_t stream) {
+  using namespace wg16;
+  const int swap = a.sx.c > a.sx.b;
+  CUtensorMap xm, bm, cm;
+  if (!scan_map(&xm, a.x, HD, a.nh, a.sx, a, batch, swap, 64,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !scan_map(&bm, a.B, N, a.G, a.sB, a, batch, swap, N,
+                CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !scan_map(&cm, a.C, N, a.G, a.sC, a, batch, swap, N,
+                CU_TENSOR_MAP_SWIZZLE_32B))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_scan_wgmma16, cudaFuncAttributeMaxDynamicSharedMemorySize, TOTAL);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int n_sm = sm_count();
+  if (n_sm == 0) return cudaErrorInvalidDevice;
+  // persistent: BLOCKS_PER_SM blocks an SM, or one a (batch, head) pair
+  const int n_bh = batch * a.nh;
+  ssd_scan_wgmma16<<<min(n_bh, BLOCKS_PER_SM * n_sm), NT, TOTAL, stream>>>(
       xm, bm, cm, a, n_bh, swap);
   return cudaGetLastError();
 }
@@ -1010,10 +1339,16 @@ extern "C" int ssd_chunk_scan_fwd(int dtype, const void* x, const void* B,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = batch * nh;
-  if (dtype == 1 && hd == 64 && N == 128) return launch_wgmma(a, batch, st);
-  if (hd == 64 && N == 128) return launch<64, 128>(dtype, a, blocks, st);
-  if (hd == 32 && N == 64) return launch<32, 64>(dtype, a, blocks, st);
-  if (hd == 64 && N == 16) return launch<64, 16>(dtype, a, blocks, st);
-  if (hd == 32 && N == 16) return launch<32, 16>(dtype, a, blocks, st);
+  if (dtype == 1) {
+    if (hd == 64 && N == 128) return launch_wgmma(a, batch, st);
+    if (hd == 64 && N == 16) return launch_wgmma16(a, batch, st);
+    if (hd == 32 && N == 64) return launch_bf16<32, 64>(a, blocks, st);
+    if (hd == 32 && N == 16) return launch_bf16<32, 16>(a, blocks, st);
+    return cudaErrorInvalidValue;
+  }
+  if (hd == 64 && N == 128) return launch_f32<64, 128>(a, blocks, st);
+  if (hd == 32 && N == 64) return launch_f32<32, 64>(a, blocks, st);
+  if (hd == 64 && N == 16) return launch_f32<64, 16>(a, blocks, st);
+  if (hd == 32 && N == 16) return launch_f32<32, 16>(a, blocks, st);
   return cudaErrorInvalidValue;
 }
