@@ -404,6 +404,30 @@ def ssd_work(nh, ng, hd, n, nc, B, Q):
     return flops, nbytes
 
 
+def moe_prefill_shapes():
+    """The gmm pair at the MoE cells' served prefill (B 8, L 512): (arch,
+    experts, d_model, expert d_ff, groups, capacity). deepseek-moe-16b's
+    is the ``[kernels]`` record's eight groups of 64; jamba-v0.1-52b's and
+    dbrx-132b's are eight groups of the reference's capacity."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ffn
+    shapes = [("deepseek-moe-16b", ME, MD, MF, 8, 64)]
+    for arch in ("jamba-v0.1-52b", "dbrx-132b"):
+        mc = ARCHS[arch]
+        shapes.append((arch, mc.moe.num_experts, mc.d_model, mc.d_ff, 8,
+                       ffn.capacity(mc, 512, 1.25)))
+    return shapes
+
+
+def gmm_work(E, rows, K, N, weights, x_bytes):
+    """(operations, bytes) of ``gmm`` (weights 1) or ``gmm_gated`` (2) on
+    an (E, rows, K) x of ``x_bytes`` an element against bf16 weights: x
+    and the weights read once, the (E, rows, N) result written once in x's
+    type."""
+    return (2 * weights * E * rows * K * N,
+            x_bytes * E * rows * (K + N) + 2 * weights * E * K * N)
+
+
 def fmt_ms(t):
     return "not measured" if t is None else f"{t:.4f} ms"
 
@@ -873,6 +897,7 @@ def phase_kernels(seed):
         "shape": f"x ({E},{C},{MF}) f32 @ w ({E},{MF},{MD}) bf16 -> f32",
         "max_abs_err": worst["gmm"],
         "ms": cuda_ms(lambda: mg.gmm(xd, wd), 20),
+        "device_ms": device_ms(lambda: mg.gmm(xd, wd)),
         "plain_ms": cuda_ms(lambda: ref.gmm_ref(xd, wd), 5),
         "library_ms": cuda_ms(lambda: torch.bmm(xd, wd32), 10),
         "flops": 2 * E * C * MF * MD,
@@ -896,6 +921,7 @@ def phase_kernels(seed):
                  f"f32",
         "max_abs_err": worst["gmm_gated"],
         "ms": cuda_ms(lambda: mg.gmm_gated(xe, wg, wu), 20),
+        "device_ms": device_ms(lambda: mg.gmm_gated(xe, wg, wu)),
         "plain_ms": cuda_ms(lambda: ref.gmm_gated_ref(xe, wg, wu), 5),
         "library_ms": None,   # no single PyTorch call computes the pair
         "flops": 2 * 2 * E * rows * MD * MF,
@@ -939,10 +965,8 @@ def phase_kernels(seed):
     # tokens (bf16 values) against bf16 weights, held and timed beside
     # torch.bmm in f32 on f32 copies of the weights (two calls for the
     # gated pair); then held at a decode step's eight groups of one token
-    for arch in ("jamba-v0.1-52b", "dbrx-132b"):
+    for arch, E, d, f, ng, cg in moe_prefill_shapes()[1:]:
         mc = ARCHS[arch]
-        E, d, f = mc.moe.num_experts, mc.d_model, mc.d_ff
-        ng, cg = 8, ffn.capacity(mc, 512, 1.25)
         rows = ng * cg
         xe = randn(ng, E, cg, d, dtype=torch.bfloat16).float()
         wg, wu = ((randn(E, d, f, dtype=torch.float32) / d ** 0.5).bfloat16()
@@ -967,14 +991,12 @@ def phase_kernels(seed):
         for label, flops, nbytes, kern, plain, lib in (
                 (f"gated f32 x (bf16 values) bf16 w, {arch} prefill xe "
                  f"{tuple(xe.shape)} @ 2x({E},{d},{f})",
-                 2 * 2 * E * rows * d * f,
-                 4 * E * rows * d + 2 * 2 * E * d * f + 4 * E * rows * f,
+                 *gmm_work(E, rows, d, f, 2, 4),
                  lambda: mg.gmm_gated(xe, wg, wu),
                  lambda: ref.gmm_gated_ref(xe, wg, wu),
                  lambda: (torch.bmm(x3, wg32), torch.bmm(x3, wu32))),
                 (f"f32 x bf16 w, {arch} prefill down ({E},{rows},{f}) @ "
-                 f"({E},{f},{d})", 2 * E * rows * f * d,
-                 4 * E * rows * f + 2 * E * f * d + 4 * E * rows * d,
+                 f"({E},{f},{d})", *gmm_work(E, rows, f, d, 1, 4),
                  lambda: mg.gmm(hid, wd), lambda: ref.gmm_ref(hid, wd),
                  lambda: torch.bmm(hid, wd32))):
             bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3

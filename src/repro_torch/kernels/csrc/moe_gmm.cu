@@ -5,7 +5,7 @@
 // `expert_ffn` there that composes it:
 // - `gmm_fwd`: x (E,C,K) @ w (E,K,N) -> o (E,C,N) in x's dtype, the
 //   products summed in f32.
-// - `gmm_gated_fwd`: act(x @ w_gate) * (x @ w_up) in one launch, x read in
+// - `gmm_gated_fwd`: act(x @ w_gate) * (x @ w_up) in one call, x read in
 //   place as (G,E,C,K) with any strides (the MoE dispatch's layout), the
 //   G*C tokens of an expert written as the rows of o (E, G*C, N). In bf16
 //   it rounds where the three-launch composition rounds: each product to
@@ -14,12 +14,13 @@
 // N, any shape is taken: rows, columns and depth past the edge are
 // zero-filled on load and not stored.
 //
-// What bounds it: at the prefill shape (E 64, C 512, K 2048, N 1408) one
-// product does 189 GFLOP on ~0.8 GB, ~250 operations a byte, close to the
-// card's ~295: operations and bytes bound it about equally, and only
-// wgmma fed by TMA reaches the tensor cores' rate. At the decode shape
-// (C 8) it streams the 369 MB of an expert matrix for 3 GFLOP: bytes bound
-// it.
+// What bounds it: at deepseek-moe-16b's prefill (E 64, C 512, K 2048, N
+// 1408) one product does 189 GFLOP on ~0.8 GB, ~250 operations a byte,
+// close to the card's ~295; at jamba-v0.1-52b's and dbrx-132b's (16
+// experts of 117-132 MB a matrix, 640-1280 rows each) operations bound
+// it, provided each expert's weights leave HBM about once: an expert
+// matrix is larger than the 50 MB L2. At the decode shape (8 rows an
+// expert) it streams the weights: bytes bound it.
 //
 // Three type pairs: x and w bf16 -> bf16; x f32 and w bf16 -> f32 (the
 // serving path: the reference's one-hot dispatch promotes a bf16 model's
@@ -38,23 +39,29 @@
 // 3. K or N not a multiple of 8, an unaligned base or a row stride that is
 //    not a multiple of 16 bytes, or K = 0: `gmm_tc<128, ...>` with
 //    element-wise loads.
-// 4. Otherwise (prefill): `gmm_wgmma`, below (it needs K > 0).
-// `gmm_wgmma`: one block of 384 threads per (expert, 128-row tile, 128-
-// column tile). One producer thread keeps TMA loads in flight through a
-// ring of 3-6 shared-memory stages (x tile and w tile(s) of 64 deep, full
-// and empty mbarriers); two consumer warpgroups of 64 rows each run
-// m64n128k16 wgmma (`setmaxnreg` moves the producer's registers to their
-// accumulators). w, row-major (K,N), is an N-major B operand (the
-// transpose bit). bf16 x is read from shared memory by descriptor; f32 x
-// arrives by TMA as f32, each consumer splits its A fragments into hi and
-// lo in registers and runs wgmma with A from registers. Where lo is 0 in
-// the whole (warpgroup rows, K tile) the lo product is skipped: it would
-// add exact zeros, so the result is bit-identical. The vote is uniform
-// across the warpgroup (a reduction at a named barrier). Every gate/up
-// tile of the served path is such a tile: each dispatch slot holds one
-// bf16 token. The tokens of a gated call are read through a 4-D tensor
-// map (d, C, E, G) over the dispatch's own strides: a row tile is Gb
-// groups of Cb rows, so no copy of x is made.
+// 4. Otherwise (prefill): `gmm_split`, then `gmm_wgmma` (below), in one
+//    call. The pre-pass writes x's rows, packed as (E, M, K) across group
+//    boundaries, into bf16 planes in the caller's scratch: for f32 x hi,
+//    and lo only for the (128-row tile, 64-deep K tile) blocks where it is
+//    not 0, each block's flag saying which; bf16 x is read in place where
+//    its rows are one stride apart, else copied. `gmm_wgmma` is persistent
+//    (one block an SM) and walks (expert, column tile, row tile) with row
+//    tiles fastest, so the blocks of a wave read each w column tile
+//    together and it leaves HBM about once. Its tiles are 128 rows x 256
+//    accumulator columns (gmm: 256 output columns; gated: 128 of w_gate
+//    beside the same 128 of w_up), one m64n256k16 wgmma a k-step, both
+//    operands from shared memory. A producer thread keeps TMA loads in a
+//    ring of four 48 KB stages: each K tile's hi stage, and a lo stage
+//    against the same w tile where the block's flag is set. The two
+//    consumer warpgroups run as many iterations as the tile has stages,
+//    with no branch among the wgmmas, and keep one K tile's wgmma group in
+//    flight; the epilogue TMA-stores 128-byte column chunks. The lo product
+//    is skipped only where it adds exact zeros, so the result is
+//    bit-identical. Every gate/up tile of the served path skips it: each
+//    dispatch slot holds one bf16 token.
+// Tried at the served shapes and slower (tools/bench_kernels.py, PERF.md):
+// ping-pong warpgroups on 128 x 128 tiles, and clusters of two blocks
+// multicasting the w tile to two row tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,8 +94,10 @@ __device__ __forceinline__ const void* x_row(const GmmArgs& a, int es, int e,
          es * (e * a.sxe + (r / a.C) * a.sxg + (r % a.C) * a.sxc);
 }
 
+// silu from the exp2 and reciprocal approximations (about 1e-6 relative;
+// where exp(-v) overflows, 0, its limit)
 __device__ __forceinline__ float act_fn(int act, float v) {
-  if (act == 1) return v / (1.f + expf(-v));
+  if (act == 1) return __fdividef(v, 1.f + __expf(-v));
   return 0.5f * v *
          (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
 }
@@ -464,64 +473,133 @@ __global__ void __launch_bounds__(FNT) gmm_f32(const GmmArgs a) {
 
 // ---------------------------------------------------------------- wgmma
 
-constexpr int TBM = 128;  // rows of a block: 2 consumer warpgroups x 64
-constexpr int TBN = 128;  // columns of a block
+constexpr int TBM = 128;  // rows of a tile: 2 consumer warpgroups x 64
+constexpr int TBN = 256;  // accumulator columns of a tile (see gmm_wgmma)
 constexpr int TBK = 64;   // depth of a K tile
 constexpr int TNT = 384;  // threads: 2 consumer warpgroups + 1 producer
+// shared memory from a 1024-aligned base: a ring of RING stages, each the
+// x tile (one box, 128 rows x 64 deep, 128 B a row) and the w tile (four
+// boxes of 64 columns, each 64 k-rows x 128 B), 128-byte swizzled; NBUF
+// epilogue buffers a consumer warpgroup (64 rows x 128 B, swizzled as a
+// TMA store reads them); the ring's full and empty mbarriers
+constexpr int A_BYTES = TBM * TBK * 2;
+constexpr int B_BYTES = TBK * TBN * 2;
+constexpr int STAGE = A_BYTES + B_BYTES;
+constexpr int RING = 4;
+constexpr int NBUF = 2;
+constexpr int OUT_BYTES = 64 * 128;
+constexpr int OUT = RING * STAGE;
+constexpr int BARS = OUT + 2 * NBUF * OUT_BYTES;
+constexpr int SMEM = BARS + 16 * RING + 1024;  // + 1024-byte alignment
 
-// shared memory, in bytes from a 1024-aligned base; a stage holds the x
-// tile (f32: two boxes of 32 deep, bf16: one box of 64, each 128 rows x
-// 128 B) and NB w tiles (two boxes of 64 columns, each 64 k-rows x 128 B)
-template <bool AF32, int NB>
-struct GwLayout {
-  static constexpr int A_BYTES = TBM * TBK * (AF32 ? 4 : 2);
-  static constexpr int B_BYTES = TBK * TBN * 2;
-  static constexpr int STAGE = A_BYTES + NB * B_BYTES;
-  static constexpr int ST = 196608 / STAGE < 6 ? 196608 / STAGE : 6;
-  static constexpr int BARS = ST * STAGE;
-  static constexpr int TOTAL = BARS + 16 * ST + 1024;  // + align
+// what the wgmma path multiplies: the bf16 x planes (hi, and lo where a
+// (row tile, K tile) flag is set) as (E, M, K) through TMA maps, w0 (and,
+// gated, w1) (E, K, N), into o (E, M, N) through a TMA map; flags
+// (E, RT, NKP) bytes, NKP the K tiles rounded up to 16, null for bf16 x
+struct WgArgs {
+  const uint8_t* flags;
+  int M, K, N, RT, NT, NKP, tiles, act;
 };
 
-template <bool AF32, int NB>
+// The pre-pass: rows m of a (G, E, C, K) x read through its strides into
+// the (E, M, K) planes the main kernel's TMA maps read, one block a (K
+// tile, row tile, expert), 4 pieces of 8 elements a thread. For f32 x, hi
+// = bf16(x), and lo = bf16(x - hi) is written, and the block's flag set,
+// only where some lo of the block is not 0; for bf16 x, a copy (x's rows
+// were not one stride apart). Blocks past K write a 0 flag.
+template <bool AF32>
+__global__ void __launch_bounds__(256)
+gmm_split(const GmmArgs a, __nv_bfloat16* __restrict__ hi,
+          __nv_bfloat16* __restrict__ lo, uint8_t* __restrict__ flags,
+          int RT, int NKP) {
+  using TA = typename std::conditional<AF32, float, __nv_bfloat16>::type;
+  const int kt = blockIdx.x, r = blockIdx.y, e = blockIdx.z;
+  const int M = a.G * a.C, K = a.K;
+  uint4 l[4];
+  long dst[4];
+  bool in[4], any = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = threadIdx.x + 256 * i;
+    const int m = r * TBM + u / 8, k = kt * TBK + (u % 8) * 8;
+    in[i] = m < M && k < K;
+    if (!in[i]) continue;
+    const TA* src = static_cast<const TA*>(x_row(a, sizeof(TA), e, m)) + k;
+    dst[i] = ((long)e * M + m) * K + k;
+    if constexpr (AF32) {
+      const float4 v0 = *reinterpret_cast<const float4*>(src);
+      const float4 v1 = *reinterpret_cast<const float4*>(src + 4);
+      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      uint32_t h[4], lw[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 hb = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+        const float2 hf = __bfloat1622float2(hb);
+        h[q] = *reinterpret_cast<const uint32_t*>(&hb);
+        lw[q] = pack_bf16x2(v[2 * q] - hf.x, v[2 * q + 1] - hf.y);
+      }
+      *reinterpret_cast<uint4*>(hi + dst[i]) = make_uint4(h[0], h[1], h[2], h[3]);
+      l[i] = make_uint4(lw[0], lw[1], lw[2], lw[3]);
+      any |= ((lw[0] | lw[1] | lw[2] | lw[3]) & 0x7fff7fffu) != 0;
+    } else {
+      *reinterpret_cast<uint4*>(hi + dst[i]) =
+          *reinterpret_cast<const uint4*>(src);
+    }
+  }
+  if constexpr (AF32) {
+    any = __syncthreads_or(any);
+    if (any) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (in[i]) *reinterpret_cast<uint4*>(lo + dst[i]) = l[i];
+    }
+    if (threadIdx.x == 0) flags[((long)e * RT + r) * NKP + kt] = any;
+  }
+}
+
+// The prefill kernel: persistent, one block of 384 threads an SM, walking
+// the tiles (expert, column tile, row tile) with row tiles fastest, so the
+// blocks of a wave share each w column tile and it leaves HBM about once.
+// A tile is 128 rows x 256 accumulator columns: gmm's 256 output columns,
+// or GATED's 128 columns of w_gate beside the same 128 of w_up (the B
+// tile's four boxes are wg, wg, wu, wu), one m64n256k16 a k-step and
+// consumer. One producer thread keeps TMA loads in flight through the
+// ring: for each K tile the hi stage, then the lo stage against the same
+// w tile (loaded again, from L2) where its flag is set. The two consumer
+// warpgroups of 64 rows each run as many iterations as the tile's stages,
+// with no branch among the wgmmas, keep one K tile's wgmma group in
+// flight (wgmma_wait<1>) and release a stage when the group that read it
+// has retired. Each warpgroup's epilogue writes its rows a 128-byte column
+// chunk at a time into one of its NBUF buffers and TMA-stores it; its last
+// chunks drain while the next tile's products run.
+template <bool AF32, bool GATED>
 __global__ void __launch_bounds__(TNT, 1)
-gmm_wgmma(const __grid_constant__ CUtensorMap xmap,
+gmm_wgmma(const __grid_constant__ CUtensorMap hmap,
+          const __grid_constant__ CUtensorMap lmap,
           const __grid_constant__ CUtensorMap w0map,
-          const __grid_constant__ CUtensorMap w1map, void* __restrict__ o_,
-          int G, int C, int Cb, int Gb, int K, int N, int act) {
-  using L = GwLayout<AF32, NB>;
+          const __grid_constant__ CUtensorMap w1map,
+          const __grid_constant__ CUtensorMap omap, const WgArgs a) {
   using TO = typename std::conditional<AF32, float, __nv_bfloat16>::type;
-  constexpr int ST = L::ST;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t bars = base + L::BARS;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (ST + s); };
+  auto full = [&](int s) { return base + BARS + 8u * s; };
+  auto empty = [&](int s) { return base + BARS + 8u * (RING + s); };
+  const int nk = (a.K + TBK - 1) / TBK;
+  // tile t: its expert, first row and first column, and its flags
+  auto tile = [&](int t, int& e, int& m0, int& n0) -> const uint8_t* {
+    const int r = t % a.RT, q = t / a.RT;
+    e = q / a.NT;
+    m0 = r * TBM;
+    n0 = (q % a.NT) * (GATED ? TBN / 2 : TBN);
+    return AF32 ? a.flags + ((long)e * a.RT + r) * a.NKP : nullptr;
+  };
 
-  const int n0 = blockIdx.x * TBN, e = blockIdx.z;
-  const int n_ct = (C + Cb - 1) / Cb;
-  const int c0 = (blockIdx.y % n_ct) * Cb, g0 = (blockIdx.y / n_ct) * Gb;
-  const int rows = Cb * Gb;  // rows of the x box; the rest of 128 stay 0
-  const int nk = (K + TBK - 1) / TBK;
-
-  if (rows < TBM) {
-    // rows the boxes never write: zero, so that they add nothing and do
-    // not block the lo skip
-    constexpr int RB = AF32 ? 2 : 1;  // x boxes a stage
-    for (int i = threadIdx.x; i < ST * RB * (TBM - rows) * 8; i += TNT) {
-      const int chunk = i % 8, r = rows + (i / 8) % (TBM - rows);
-      const int sb = i / (8 * (TBM - rows));  // (stage, box)
-      *reinterpret_cast<uint4*>(gbase + (sb / RB) * L::STAGE +
-                                (sb % RB) * TBM * 128 + r * 128 + chunk * 16) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-    fence_proxy_async();
-  }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < ST; ++s) {
+    for (int s = 0; s < RING; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 2 * 128);  // every consumer thread arrives
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
     }
     mbar_init_fence();
   }
@@ -529,129 +607,123 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap,
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // producer: one thread issues every load
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
-      const uint32_t bytes =
-          TBK * rows * (AF32 ? 4 : 2) + NB * L::B_BYTES;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % ST, k0 = kt * TBK;
-        mbar_wait(empty(s), ((kt / ST) & 1) ^ 1);
-        mbar_expect_tx(full(s), bytes);
-        const uint32_t st = base + s * L::STAGE;
-        if constexpr (AF32) {
-          tma_load_4d(st, &xmap, full(s), k0, c0, e, g0);
-          tma_load_4d(st + TBM * 128, &xmap, full(s), k0 + 32, c0, e, g0);
-        } else {
-          tma_load_4d(st, &xmap, full(s), k0, c0, e, g0);
-        }
+      prefetch_map(&hmap);
+      prefetch_map(&lmap);
+      prefetch_map(&w0map);
+      prefetch_map(&w1map);
+      int it = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        int e, m0, n0;
+        const uint8_t* fl = tile(t, e, m0, n0);
+        uint4 fw = make_uint4(0u, 0u, 0u, 0u);
+        for (int kt = 0; kt < nk; ++kt) {
+          bool lo = false;
+          if constexpr (AF32) {
+            if (kt % 16 == 0) fw = *reinterpret_cast<const uint4*>(fl + kt);
+            const int b = kt % 16;
+            const uint32_t w4 = b < 8 ? (b < 4 ? fw.x : fw.y)
+                                      : (b < 12 ? fw.z : fw.w);
+            lo = (w4 >> (8 * (b % 4))) & 0xffu;
+          }
+          for (int part = 0; part <= (int)lo; ++part, ++it) {
+            const int s = it % RING;
+            mbar_wait(empty(s), ((it / RING) & 1) ^ 1);
+            mbar_expect_tx(full(s), STAGE);
+            const uint32_t st = base + s * STAGE;
+            tma_load_3d(st, part ? &lmap : &hmap, full(s), kt * TBK, m0, e);
 #pragma unroll
-        for (int bi = 0; bi < NB; ++bi) {
-          const CUtensorMap* wm = bi == 0 ? &w0map : &w1map;
-          const uint32_t bd = st + L::A_BYTES + bi * L::B_BYTES;
-          tma_load_3d(bd, wm, full(s), n0, k0, e);
-          tma_load_3d(bd + TBK * 128, wm, full(s), n0 + 64, k0, e);
+            for (int q = 0; q < 4; ++q)
+              tma_load_3d(st + A_BYTES + q * (TBK * 128),
+                          GATED && q >= 2 ? &w1map : &w0map, full(s),
+                          n0 + 64 * (GATED ? q % 2 : q), kt * TBK, e);
+          }
         }
       }
     }
   } else {
     setmaxnreg_inc<232>();
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int r0 = wg * 64 + warp * 16 + lane / 4;  // rows r0 and r0 + 8
-    float acc[NB][64];
+    const int wtid = threadIdx.x % 128, lane = threadIdx.x % 32;
+    const int rr = wtid / 32 * 16 + lane / 4;  // rows rr, rr + 8 of the 64
+    float acc[128];  // the first k-step of a tile overwrites it (scale-d 0)
 #pragma unroll
-    for (int bi = 0; bi < NB; ++bi)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[bi][i] = 0.f;
-
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % ST;
-      mbar_wait(full(s), (kt / ST) & 1);
-      const uint32_t st = base + s * L::STAGE;
-      // B of k-step j of weight bi: N-major, 64-column boxes 8 KB apart
-      auto db = [&](int bi, int j) {
-        return desc_sw128(st + L::A_BYTES + bi * L::B_BYTES + j * 2048,
-                          TBK * 128, 1024);
-      };
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int it = 0, ob = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+      int e, m0, n0;
+      const uint8_t* fl = tile(t, e, m0, n0);
+      int n = nk;  // the tile's stages: a K tile's, and a lo one where set
       if constexpr (AF32) {
-        // the A fragments of the 4 k-steps, split: rows r0, r0 + 8, depth
-        // 16j + 2(lane % 4) (+1) and + 8 (+9), read from the swizzled f32
-        // boxes (32 deep, 128 B a row)
-        uint32_t hi[4][4], lo[4][4];
-        bool any_lo = false;
+        for (int i = 0; i < a.NKP / 16; ++i) {
+          const uint4 v = reinterpret_cast<const uint4*>(fl)[i];
+          n += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+        }
+      }
+      for (int j = 0; j < n; ++j, ++it) {
+        const int s = it % RING;
+        mbar_wait(full(s), (it / RING) & 1);
+        const uint32_t st = base + s * STAGE;
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int kk = 0; kk < TBK / 16; ++kk)
+          wgmma_ss<1>(acc, desc_sw128(st + wg * 64 * 128 + kk * 32, 0, 1024),
+                      desc_sw128(st + A_BYTES + kk * 2048, TBK * 128, 1024),
+                      (j | kk) != 0);
+        wgmma_commit();
+        // the group before this one has retired: its stage is free
+        wgmma_wait<1>();
+        fence_regs(acc);
+        mbar_arrive_if(empty((it + RING - 1) % RING), lane == 0 && j > 0);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive_if(empty((it + RING - 1) % RING), lane == 0);
+
+      // the epilogue: rows rr, rr + 8 hold, in lane c = lane % 4,
+      // accumulator columns 8g + 2c, 8g + 2c + 1 in acc[4g + 2h] and
+      // acc[4g + 2h + 1]; a chunk is CW output columns, GC groups of 8
+      constexpr int CW = 128 / sizeof(TO), GC = CW / 8;
+      const int r0 = m0 + wg * 64;
+      if (r0 >= a.M) continue;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int r = r0 + 8 * (q & 1);
-            const int byte = (j % 2) * 64 + 8 * (lane % 4) + 32 * (q >> 1);
-            const float2 v = *reinterpret_cast<const float2*>(
-                gbase + s * L::STAGE + (j / 2) * TBM * 128 + r * 128 +
-                ((((byte >> 4) ^ (r & 7))) << 4) + (byte & 15));
-            const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-            const float2 hf = __bfloat1622float2(h);
-            const __nv_bfloat162 l =
-                __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
-            hi[j][q] = *reinterpret_cast<const uint32_t*>(&h);
-            lo[j][q] = *reinterpret_cast<const uint32_t*>(&l);
-            any_lo |= (lo[j][q] & 0x7fff7fffu) != 0;
+      for (int q = 0; q < (GATED ? TBN / 2 : TBN) / CW; ++q) {
+        if (n0 + q * CW >= a.N) break;
+        const uint32_t buf = OUT + (NBUF * wg + ob % NBUF) * OUT_BYTES;
+        // the store that last read this buffer has finished reading it
+        if (wtid == 0) bulk_wait_read_all_but<NBUF - 1>();
+        warpgroup_sync(1 + wg);
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          const int c = q * GC + g;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = rr + 8 * h;
+            float v0 = acc[4 * c + 2 * h], v1 = acc[4 * c + 2 * h + 1];
+            if constexpr (GATED) {  // column c of the gate, c + 16 of up
+              v0 = gated<TO>(a.act, v0, acc[4 * (c + 16) + 2 * h]);
+              v1 = gated<TO>(a.act, v1, acc[4 * (c + 16) + 2 * h + 1]);
+            }
+            const int byte = (g * 8 + 2 * (lane % 4)) * (int)sizeof(TO);
+            unsigned char* p = gbase + buf + row * 128 +
+                               (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15);
+            if constexpr (AF32)
+              *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+            else
+              *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v0, v1);
           }
         }
-        any_lo = warpgroup_any(any_lo, 1 + wg);
-#pragma unroll
-        for (int bi = 0; bi < NB; ++bi) fence_regs(acc[bi]);
-        fence_regs(hi);
-        fence_regs(lo);
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int bi = 0; bi < NB; ++bi) wgmma_rs<1>(acc[bi], hi[j], db(bi, j), 1);
-        if (any_lo) {
-          wgmma_fence();
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int bi = 0; bi < NB; ++bi)
-              wgmma_rs<1>(acc[bi], lo[j], db(bi, j), 1);
+        fence_proxy_async();
+        warpgroup_sync(1 + wg);
+        if (wtid == 0) {
+          tma_store_3d(&omap, base + buf, n0 + q * CW, r0, e);
+          bulk_commit();
         }
-      } else {
-#pragma unroll
-        for (int bi = 0; bi < NB; ++bi) fence_regs(acc[bi]);
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint64_t da = desc_sw128(st + wg * 64 * 128 + j * 32, 0, 1024);
-#pragma unroll
-          for (int bi = 0; bi < NB; ++bi) wgmma_ss<1>(acc[bi], da, db(bi, j), 1);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int bi = 0; bi < NB; ++bi) fence_regs(acc[bi]);
-      mbar_arrive(empty(s));
-    }
-
-    // rows r0, r0 + 8 of the tile are token (g0 + r / Cb, c0 + r % Cb)
-    const int M = G * C;
-    TO* oe = static_cast<TO*>(o_) + (long)e * M * N;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h, g = g0 + r / Cb, c = c0 + r % Cb;
-      if (r >= rows || g >= G || c >= C) continue;
-      TO* op = oe + (long)(g * C + c) * N + n0 + 2 * (lane % 4);
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        if (n0 + n * 8 >= N) continue;
-        float v0 = acc[0][4 * n + 2 * h], v1 = acc[0][4 * n + 2 * h + 1];
-        if constexpr (NB == 2) {
-          v0 = gated<TO>(act, v0, acc[NB - 1][4 * n + 2 * h]);
-          v1 = gated<TO>(act, v1, acc[NB - 1][4 * n + 2 * h + 1]);
-        }
-        store2<TO>(op + n * 8, v0, v1, true, true);
+        ++ob;
       }
     }
+    if (wtid == 0) bulk_wait();
   }
 }
 
@@ -683,104 +755,186 @@ cudaError_t launch_tc(bool vec, bool af32, const GmmArgs& a, int E,
               : run_tc<BM, BN, BK, WM, WN, ST, NB, false, false>(a, E, stream);
 }
 
-template <bool AF32, int NB>
-cudaError_t run_wgmma(const GmmArgs& a, int E, cudaStream_t stream) {
-  using L = GwLayout<AF32, NB>;
-  const uint64_t es = AF32 ? 4 : 2;
-  // a row tile: Gb whole groups of Cb = C rows where C < 128, else one
-  // group's 128 rows
-  const int Cb = a.C < TBM ? a.C : TBM;
-  int Gb = TBM / Cb;
-  if (Gb > a.G) Gb = a.G;
-  const uint64_t xd[4] = {(uint64_t)a.K, (uint64_t)a.C, (uint64_t)E,
-                          (uint64_t)a.G};
-  const uint64_t xs[3] = {a.sxc * es, a.sxe * es, a.sxg * es};
-  const uint32_t xb[4] = {(uint32_t)(AF32 ? 32 : 64), (uint32_t)Cb, 1,
-                          (uint32_t)Gb};
-  const uint64_t wd[3] = {(uint64_t)a.N, (uint64_t)a.K, (uint64_t)E};
-  const uint64_t ws[2] = {(uint64_t)a.N * 2, (uint64_t)a.K * a.N * 2};
-  const uint32_t wb[3] = {64, TBK, 1};
-  CUtensorMap xm, w0m, w1m;
-  if (!hopper_host::make_map(&xm,
-                             AF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                             4, a.x, xd, xs, xb) ||
-      !hopper_host::make_map(&w0m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.w0,
-                             wd, ws, wb) ||
-      !hopper_host::make_map(&w1m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                             NB == 2 ? a.w1 : a.w0, wd, ws, wb))
-    return cudaErrorInvalidValue;
-  auto kernel = gmm_wgmma<AF32, NB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOTAL);
-  if (err != cudaSuccess) return err;
-  const long row_tiles =
-      (long)((a.C + Cb - 1) / Cb) * ((a.G + Gb - 1) / Gb);
-  const dim3 grid((a.N + TBN - 1) / TBN, (unsigned)row_tiles, E);
-  if (row_tiles > 65535 || grid.z > 65535u) return cudaErrorInvalidValue;
-  kernel<<<grid, TNT, L::TOTAL, stream>>>(xm, w0m, w1m, a.o, a.G, a.C, Cb, Gb,
-                                          a.K, a.N, a.act);
-  return cudaGetLastError();
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <int NB>
-int dispatch(int x_dtype, int w_dtype, const GmmArgs& a, int E,
-             cudaStream_t st) {
-  if (x_dtype == 0 && w_dtype == 0) {  // 1. f32 x f32: FMAs
-    const dim3 grid((a.N + FB - 1) / FB, (a.G * a.C + FB - 1) / FB, E);
-    if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidValue;
-    gmm_f32<NB><<<grid, FNT, 0, st>>>(a);
-    return cudaGetLastError();
-  }
-  if (w_dtype != 1 || (x_dtype != 0 && x_dtype != 1))
+// which kernel takes a call (the numbers of the header's dispatch; 0: a
+// pair of types not taken), and whether its tiles move in 16-byte pieces
+int choose(int x_dtype, int w_dtype, const GmmArgs& a, bool* vec) {
+  if (x_dtype == 0 && w_dtype == 0) return 1;
+  if (w_dtype != 1 || (x_dtype != 0 && x_dtype != 1)) return 0;
+  const long es = x_dtype == 0 ? 4 : 2;
+  *vec = a.K % 8 == 0 && a.N % 8 == 0 && aligned16(a.x) && aligned16(a.w0) &&
+         aligned16(a.w1) && aligned16(a.o) && (a.sxe * es) % 16 == 0 &&
+         (a.sxg * es) % 16 == 0 && (a.sxc * es) % 16 == 0;
+  if (a.G * a.C <= 16) return 2;
+  if (!*vec || a.K == 0) return 3;
+  return 4;
+}
+
+// the wgmma path's scratch: the hi and lo planes (E, M, K) bf16 and the
+// flags (E, RT, NKP) bytes, each 256-byte aligned; none where bf16 x is
+// read in place (its rows one stride apart, its experts further)
+struct Scratch {
+  long lo, flags, bytes;
+};
+
+int k_tiles16(int K) { return ((K + TBK - 1) / TBK + 15) / 16 * 16; }
+
+Scratch scratch(bool af32, const GmmArgs& a, int E) {
+  auto up = [](long b) { return (b + 255) / 256 * 256; };
+  const long M = (long)a.G * a.C;
+  if (!af32 && (a.G == 1 || a.sxg == a.C * a.sxc) && a.sxe >= M * a.sxc)
+    return {0, 0, 0};
+  const long plane = up((long)E * M * a.K * 2);
+  if (!af32) return {0, 0, plane};
+  const long rt = (M + TBM - 1) / TBM;
+  return {plane, 2 * plane, 2 * plane + up(E * rt * k_tiles16(a.K))};
+}
+
+template <bool AF32, bool GATED>
+cudaError_t run_wgmma(const GmmArgs& a, int E, void* ws, long ws_bytes,
+                      cudaStream_t stream) {
+  const int M = a.G * a.C, BN = GATED ? TBN / 2 : TBN;
+  const Scratch sc = scratch(AF32, a, E);
+  if (ws_bytes < sc.bytes || (sc.bytes && !aligned16(ws)))
     return cudaErrorInvalidValue;
-  const bool af32 = x_dtype == 0;
-  const long es = af32 ? 4 : 2;
-  const bool vec = a.K % 8 == 0 && a.N % 8 == 0 && aligned16(a.x) &&
-                   aligned16(a.w0) && aligned16(a.w1) && aligned16(a.o) &&
-                   (a.sxe * es) % 16 == 0 && (a.sxg * es) % 16 == 0 &&
-                   (a.sxc * es) % 16 == 0;
-  if (a.G * a.C <= 16) {  // 2. decode: a few rows an expert, weights streamed
-    // 4 stages for one weight (2 blocks an SM), 2 for the gated pair (the
-    // two weights' tiles double a stage; 2 blocks an SM still fit)
-    if constexpr (NB == 1)
-      return launch_tc<16, 128, 64, 1, 4, 4, 1>(vec, af32, a, E, st);
-    else
-      return launch_tc<16, 128, 64, 1, 4, 2, 2>(vec, af32, a, E, st);
+  WgArgs w{nullptr, M, a.K, a.N, (M + TBM - 1) / TBM, (a.N + BN - 1) / BN,
+           k_tiles16(a.K), 0, a.act};
+  const long tiles = (long)E * w.RT * w.NT;
+  if (tiles > 0x7fffffffL || E > 65535 || w.RT > 65535)
+    return cudaErrorInvalidValue;
+  w.tiles = (int)tiles;
+
+  // the x planes: the pre-pass's, or bf16 x itself, (K, M, E) with rows
+  // `rs` and experts `xs` bytes apart
+  const void* hi = a.x;
+  const void* lo = a.x;
+  uint64_t rs = a.sxc * 2, xs = a.sxe * 2;
+  if (sc.bytes) {
+    char* b = static_cast<char*>(ws);
+    hi = b;
+    lo = b + sc.lo;
+    rs = (uint64_t)a.K * 2;
+    xs = (uint64_t)M * a.K * 2;
+    if constexpr (AF32) w.flags = reinterpret_cast<const uint8_t*>(b + sc.flags);
+    gmm_split<AF32><<<dim3(w.NKP, w.RT, E), 256, 0, stream>>>(
+        a, static_cast<__nv_bfloat16*>(const_cast<void*>(hi)),
+        static_cast<__nv_bfloat16*>(const_cast<void*>(lo)),
+        const_cast<uint8_t*>(w.flags), w.RT, w.NKP);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  if (!vec || a.K == 0)  // 3. element-wise loads (K = 0: zeros)
-    return af32 ? run_tc<128, 128, 32, 2, 4, 3, NB, false, true>(a, E, st)
-                : run_tc<128, 128, 32, 2, 4, 3, NB, false, false>(a, E, st);
-  return af32 ? run_wgmma<true, NB>(a, E, st)  // 4. prefill
-              : run_wgmma<false, NB>(a, E, st);
+  const uint64_t xd[3] = {(uint64_t)a.K, (uint64_t)M, (uint64_t)E};
+  const uint64_t xst[2] = {rs, xs};
+  const uint32_t xb[3] = {TBK, TBM, 1};
+  const uint64_t wd[3] = {(uint64_t)a.N, (uint64_t)a.K, (uint64_t)E};
+  const uint64_t wst[2] = {(uint64_t)a.N * 2, (uint64_t)a.K * a.N * 2};
+  const uint32_t wb[3] = {64, TBK, 1};
+  const uint64_t es = AF32 ? 4 : 2;
+  const uint64_t od[3] = {(uint64_t)a.N, (uint64_t)M, (uint64_t)E};
+  const uint64_t ost[2] = {a.N * es, (uint64_t)M * a.N * es};
+  const uint32_t obox[3] = {(uint32_t)(128 / es), 64, 1};
+  CUtensorMap hm, lm, w0m, w1m, om;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!hopper_host::make_map(&hm, bf16, 3, hi, xd, xst, xb) ||
+      !hopper_host::make_map(&lm, bf16, 3, lo, xd, xst, xb) ||
+      !hopper_host::make_map(&w0m, bf16, 3, a.w0, wd, wst, wb) ||
+      !hopper_host::make_map(&w1m, bf16, 3, a.w1, wd, wst, wb) ||
+      !hopper_host::make_map(&om,
+                             AF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : bf16, 3,
+                             a.o, od, ost, obox))
+    return cudaErrorInvalidValue;
+  auto kernel = gmm_wgmma<AF32, GATED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int grid = w.tiles < sms ? w.tiles : sms;
+  kernel<<<grid, TNT, SMEM, stream>>>(hm, lm, w0m, w1m, om, w);
+  return cudaGetLastError();
+}
+
+template <int NB>
+int dispatch(int x_dtype, int w_dtype, const GmmArgs& a, int E, void* ws,
+             long ws_bytes, cudaStream_t st) {
+  const bool af32 = x_dtype == 0;
+  bool vec = false;
+  switch (choose(x_dtype, w_dtype, a, &vec)) {
+    case 1: {  // f32 x f32: FMAs
+      const dim3 grid((a.N + FB - 1) / FB, (a.G * a.C + FB - 1) / FB, E);
+      if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidValue;
+      gmm_f32<NB><<<grid, FNT, 0, st>>>(a);
+      return cudaGetLastError();
+    }
+    case 2:  // decode: a few rows an expert, weights streamed
+      // 4 stages for one weight (2 blocks an SM), 2 for the gated pair (the
+      // two weights' tiles double a stage; 2 blocks an SM still fit)
+      if constexpr (NB == 1)
+        return launch_tc<16, 128, 64, 1, 4, 4, 1>(vec, af32, a, E, st);
+      else
+        return launch_tc<16, 128, 64, 1, 4, 2, 2>(vec, af32, a, E, st);
+    case 3:  // element-wise loads (K = 0: zeros)
+      return af32 ? run_tc<128, 128, 32, 2, 4, 3, NB, false, true>(a, E, st)
+                  : run_tc<128, 128, 32, 2, 4, 3, NB, false, false>(a, E, st);
+    case 4:  // prefill
+      return af32 ? run_wgmma<true, NB == 2>(a, E, ws, ws_bytes, st)
+                  : run_wgmma<false, NB == 2>(a, E, ws, ws_bytes, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x_dtype / w_dtype: 0 = float32, 1 = bfloat16; the pairs taken are
 // (1, 1) -> bf16 out, (0, 1) and (0, 0) -> f32 out. x (E,C,K), w (E,K,N)
-// and o (E,C,N) are contiguous; E, C, N >= 1, K >= 0. Returns the
-// cudaError_t of the launch (0 = launched; cudaErrorInvalidValue also
-// where cuTensorMapEncodeTiled refuses a TMA tensor map).
+// and o (E,C,N) are contiguous; E, C, N >= 1, K >= 0. `ws`: device scratch
+// of `ws_bytes` (16-byte aligned), at least what gmm_workspace_bytes asks
+// for the same arguments. Returns the cudaError_t of the launch (0 =
+// launched; cudaErrorInvalidValue also where cuTensorMapEncodeTiled
+// refuses a TMA tensor map or the scratch is short).
 extern "C" int gmm_fwd(int x_dtype, int w_dtype, const void* x, const void* w,
-                       void* o, int E, int C, int K, int N, void* stream) {
+                       void* o, int E, int C, int K, int N, void* ws,
+                       long ws_bytes, void* stream) {
   const GmmArgs a{x, w, w, o, (long)C * K, (long)E * C * K, (long)K,
                   1, C, K, N, 0};
-  return dispatch<1>(x_dtype, w_dtype, a, E, static_cast<cudaStream_t>(stream));
+  return dispatch<1>(x_dtype, w_dtype, a, E, ws, ws_bytes,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // o (E, G*C, N) = act(x @ w_gate) * (x @ w_up), row g*C + c of expert e
-// from x + e*sxe + g*sxg + c*sxc (elements; K contiguous). Types as for
-// gmm_fwd, w_gate and w_up (E,K,N) contiguous; act 1 = silu, 2 = tanh-gelu.
+// from x + e*sxe + g*sxg + c*sxc (elements; K contiguous). Types and `ws`
+// as for gmm_fwd, w_gate and w_up (E,K,N) contiguous; act 1 = silu, 2 =
+// tanh-gelu.
 extern "C" int gmm_gated_fwd(int x_dtype, int w_dtype, const void* x,
                              const void* w_gate, const void* w_up, void* o,
                              int E, int G, int C, int K, int N, long sxe,
-                             long sxg, long sxc, int act, void* stream) {
+                             long sxg, long sxc, int act, void* ws,
+                             long ws_bytes, void* stream) {
   if (act != 1 && act != 2) return cudaErrorInvalidValue;
   const GmmArgs a{x, w_gate, w_up, o, sxe, sxg, sxc, G, C, K, N, act};
-  return dispatch<2>(x_dtype, w_dtype, a, E, static_cast<cudaStream_t>(stream));
+  return dispatch<2>(x_dtype, w_dtype, a, E, ws, ws_bytes,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The bytes of device scratch that gmm_fwd (nb 1: w1 = w0, G 1, the
+// strides of a contiguous (E,C,K) x) or gmm_gated_fwd (nb 2) needs for
+// these arguments: 0 but on the prefill path, where the pre-pass writes x's
+// bf16 planes.
+extern "C" long gmm_workspace_bytes(int nb, int x_dtype, int w_dtype,
+                                    const void* x, const void* w0,
+                                    const void* w1, const void* o, int E,
+                                    int G, int C, int K, int N, long sxe,
+                                    long sxg, long sxc) {
+  const GmmArgs a{x, w0, nb == 2 ? w1 : w0, const_cast<void*>(o), sxe, sxg,
+                  sxc, G, C, K, N, 1};
+  bool vec = false;
+  if (choose(x_dtype, w_dtype, a, &vec) != 4) return 0;
+  return scratch(x_dtype == 0, a, E).bytes;
 }

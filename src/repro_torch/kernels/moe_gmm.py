@@ -10,7 +10,10 @@ those the reference's MoE layer gives them: x and w bf16, x f32 and w bf16
 (a bf16 model: the one-hot dispatch promotes the tokens to f32), x and w
 f32. The result has x's dtype. ``expert_ffn`` is the gated expert FFN of
 the reference's ``expert_ffn`` in two launches: ``gmm_gated`` (gate and
-up, with the activation and the product) and ``gmm`` (down).
+up, with the activation and the product) and ``gmm`` (down). On the
+prefill path a call also runs a pre-pass that writes x's bf16 planes into
+scratch the wrapper allocates (``gmm_workspace_bytes`` says how much); it
+is part of the one launch counted.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def _kernel():
     fn = build.load("moe_gmm").gmm_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p])
     return fn
 
 
@@ -49,8 +53,27 @@ def _gated_kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 5 + [ctypes.c_long] * 3
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_long,
+                      ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes():
+    """The C function that sizes a call's scratch, loaded at first use."""
+    fn = build.load("moe_gmm").gmm_workspace_bytes
+    fn.restype = ctypes.c_long
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 5 + [ctypes.c_long] * 3)
+    return fn
+
+
+def _scratch(nb, x, w0, w1, o, E, G, C, K, N, se, sg, sc):
+    """Device scratch for one call (an empty tensor where none is needed)."""
+    n = _workspace_bytes()(nb, DTYPES[x.dtype], DTYPES[w0.dtype],
+                           x.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+                           o.data_ptr(), E, G, C, K, N, se, sg, sc)
+    return torch.empty(n, dtype=torch.uint8, device=x.device)
 
 
 def gmm(x, w):
@@ -78,9 +101,11 @@ def gmm(x, w):
     o = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     if o.numel() == 0:
         return o
+    ws = _scratch(1, x, w, w, o, E, 1, C, K, N, C * K, E * C * K, K)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()(DTYPES[x.dtype], DTYPES[w.dtype], x.data_ptr(),
-                   w.data_ptr(), o.data_ptr(), E, C, K, N, stream)
+                   w.data_ptr(), o.data_ptr(), E, C, K, N, ws.data_ptr(),
+                   ws.numel(), stream)
     if rc:
         raise RuntimeError(f"gmm: kernel launch failed with CUDA error {rc}")
     launches += 1
@@ -129,10 +154,12 @@ def gmm_gated(x, w_gate, w_up, act="silu"):
     sg, se, sc = xs.stride(0), xs.stride(1), xs.stride(2)
     if G == 1:  # a stride of a size-1 dimension is free: a valid one
         sg = se * E
+    ws = _scratch(2, x, w_gate, w_up, o, E, G, C, K, N, se, sg, sc)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _gated_kernel()(DTYPES[x.dtype], DTYPES[w_gate.dtype], x.data_ptr(),
                          w_gate.data_ptr(), w_up.data_ptr(), o.data_ptr(),
-                         E, G, C, K, N, se, sg, sc, ACTS[act], stream)
+                         E, G, C, K, N, se, sg, sc, ACTS[act], ws.data_ptr(),
+                         ws.numel(), stream)
     if rc:
         raise RuntimeError(f"gmm_gated: kernel launch failed with CUDA "
                            f"error {rc}")

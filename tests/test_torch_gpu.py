@@ -464,6 +464,8 @@ GMM_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
     (3, 37, 45, 13),        # K and N not multiples of 8: element loads
     (1, 130, 33, 130),      # past the 128-row tile
     (2, 40, 0, 24),         # K = 0: zeros
+    (2, 1100, 320, 1040),   # 9 row tiles x 5 column tiles an expert, ragged
+    (12, 520, 128, 2560),   # 600 tiles: more than twice an H100's 132 SMs
 ])
 @pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
 def test_gmm_kernel_on_card(cuda, E, C, K, N, xdt, wdt):
@@ -504,6 +506,10 @@ GATED_SHAPES = [
     (8, 2, 56, 512, 264),     # 8 groups of 56: row tiles of 2 groups
     (4, 3, 40, 200, 72),      # K not a multiple of 64, ragged tiles
     (1, 3, 37, 45, 13),       # K and N not multiples of 8: element loads
+    (1, 2, 1100, 320, 1040),  # 9 row tiles x 9 column tiles an expert
+    (4, 12, 130, 128, 2560),  # 960 tiles: more than twice 132 SMs
+    (8, 2, 80, 256, 264),     # jamba's 8 x 80 rows: tiles span groups
+    (8, 2, 160, 192, 136),    # dbrx's 8 x 160 rows: 10 packed row tiles
 ]
 
 
@@ -531,19 +537,22 @@ def test_gmm_gated_kernel_on_card(cuda, G, E, C, K, N, xdt, wdt, act):
 @pytest.mark.gpu
 @pytest.mark.parametrize("xdt,wdt", GMM_PAIRS)
 def test_gmm_gated_strided_and_unaligned_on_card(cuda, xdt, wdt):
-    """x read through its strides (a view of a larger tensor), and an x
-    that starts off a 16-byte boundary (element-wise loads)."""
+    """x read through its strides (a view of a larger tensor; at G 3 x C 50
+    a 128-row tile packs rows of three groups), and an x that starts off a
+    16-byte boundary (element-wise loads)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
-    E, C, K, N = 3, 40, 64, 136
-    big = torch.randn((4, E + 1, C + 8, K + 16), generator=gen,
-                      device=cuda).to(xdt)
+    E, K, N = 3, 64, 136
     wg, wu = ((torch.randn((E, K, N), generator=gen, device=cuda) / 8)
               .to(wdt) for _ in range(2))
     tol = 2e-2 if xdt == torch.bfloat16 else 1e-4
-    x = big[:, 1:, 8:, 16:]
-    assert not x.is_contiguous()
-    out = tmg.gmm_gated(x, wg, wu, "silu")
-    assert rel_err(out, tref.gmm_gated_ref(x, wg, wu, "silu")) <= tol
+    for G, C in ((4, 40), (3, 50)):
+        big = torch.randn((G, E + 1, C + 8, K + 16), generator=gen,
+                          device=cuda).to(xdt)
+        x = big[:, 1:, 8:, 16:]
+        assert not x.is_contiguous()
+        out = tmg.gmm_gated(x, wg, wu, "silu")
+        assert rel_err(out, tref.gmm_gated_ref(x, wg, wu, "silu")) <= tol
+    C = 40
     flat = torch.randn(E * C * K + 1, generator=gen, device=cuda).to(xdt)
     x = flat[1:].view(E, C, K)
     assert x.data_ptr() % 16
@@ -576,6 +585,13 @@ def test_gmm_lo_skip_on_card(cuda, C):
                    tref.gmm_gated_ref(x, w, w2, "silu")) <= 1e-4
     # all exact: every lo product is skipped, and the result is the same
     assert rel_err(tmg.gmm(exact, w), tref.gmm_ref(exact, w)) <= 1e-4
+    # one inexact element, in the first row tile's last row and last K
+    # tile: that tile takes the hi + lo loop, the others skip lo
+    one = exact.clone()
+    one[1, min(C, 128) - 1, K - 1] = 64.25
+    assert rel_err(tmg.gmm(one, w), tref.gmm_ref(one, w)) <= 1e-4
+    assert rel_err(tmg.gmm_gated(one, w, w2, "silu"),
+                   tref.gmm_gated_ref(one, w, w2, "silu")) <= 1e-4
 
 
 @pytest.mark.gpu
