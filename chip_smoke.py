@@ -104,10 +104,14 @@ Sixteen phases; any failure raises and the exit code is non-zero.
 The kernels phase also holds ``flash_attention`` at those models'
 shapes (gemma's head_dim 256, whisper's non-causal encoder over 1500
 frames, llava's 7 query heads a KV head at S = 3008) and at jamba's (8,
-512, 8, 4, 128) and dbrx's (8, 512, 8, 6, 128) prefills in bf16 and f32
-and times kernel, plain and SDPA there, and holds and times
-``decode_attention`` at gemma's (8, 1, 16, 1, 256), jamba's (8, 1, 8, 4,
-128) and dbrx's (8, 1, 8, 6, 128) over a 1024-slot ring.
+512, 8, 4, 128), dbrx's (8, 512, 8, 6, 128) and command-r's (8, 512, 8,
+8, 128) prefills in bf16 and f32 and times kernel, plain and SDPA there,
+and holds and times ``decode_attention`` beside SDPA (CUDA events and
+device time) at every served decode shape (``DECODE_SHAPES``): qwen's (8,
+1, 2, 8, 128), deepseek's (8, 1, 16, 1, 128), gemma's (8, 1, 16, 1, 256),
+jamba's (8, 1, 8, 4, 128), dbrx's (8, 1, 8, 6, 128) and command-r's (8,
+1, 8, 8, 128) over 601 of 1024 slots, and llava's (4, 1, 8, 7, 128) over
+3008 of 3072.
 It also holds ``decode_attention`` at head_dim 64, 128
 and 256 with 1, 7 and 8 query heads a KV head over a partly filled and a
 wrapped ring, and on an all-false mask against the mean of V (the Pallas
@@ -309,11 +313,21 @@ FAMILY_FLASH = (
     ("llava-next-34b prefill", (4, 3008, 8, 7, 128, True)),
     ("jamba-v0.1-52b prefill", (8, 512, 8, 4, 128, True)),
     ("dbrx-132b prefill", (8, 512, 8, 6, 128, True)),
+    ("command-r-35b prefill", (8, 512, 8, 8, 128, True)),
 )
-# decode over a 1024-slot ring at the served shapes beside qwen's:
-# (label, KV heads, query heads a KV head, head_dim)
-DECODE_SHAPES = (("deepseek-moe-16b", 16, 1, 128), ("gemma-7b", 16, 1, 256),
-                 ("jamba-v0.1-52b", 8, 4, 128), ("dbrx-132b", 8, 6, 128))
+# decode at the served shapes: (label, (B, K, G, hd, ring slots, valid
+# slots)); a served step at L 512 of a 1024-slot ring holds 601 slots,
+# llava-next-34b's 3072-slot ring its 2880 visual tokens and up to 160 of
+# text (3008 at L 128)
+DECODE_SHAPES = (
+    ("qwen2.5-3b", (8, 2, 8, 128, 1024, 601)),
+    ("deepseek-moe-16b", (8, 16, 1, 128, 1024, 601)),
+    ("gemma-7b", (8, 16, 1, 256, 1024, 601)),
+    ("jamba-v0.1-52b", (8, 8, 4, 128, 1024, 601)),
+    ("dbrx-132b", (8, 8, 6, 128, 1024, 601)),
+    ("command-r-35b", (8, 8, 8, 128, 1024, 601)),
+    ("llava-next-34b", (4, 8, 7, 128, 3072, 3008)),
+)
 KERNELS = ("flash_attention", "decode_attention", "ssd_chunk_scan", "gmm",
            "gmm_gated")
 # a served phase after qwen's and mamba2's: the arch, its batches' prompt
@@ -369,6 +383,14 @@ def flash_work(B, S, T, K, G, hd, causal):
     read once and o written once in bf16."""
     pairs = B * K * G * (S * (S + 1) // 2 if causal else S * T)
     return 4 * hd * pairs, 2 * (2 * B * S * K * G * hd + 2 * B * T * K * hd)
+
+
+def decode_work(B, K, G, hd, T, n_valid):
+    """(operations, bytes) decode must do over ``n_valid`` of ``T`` slots:
+    Q K^T and P V over the valid keys; q read and o written once, the
+    valid slots' K and V read once in bf16, and the (T,) mask."""
+    return (4 * hd * B * K * G * n_valid,
+            2 * (2 * B * K * G * hd + 2 * B * n_valid * K * hd) + T)
 
 
 def ssd_inputs(gen, nc, B, Q, nh, ng, hd, n, dtype, h0_scale):
@@ -810,22 +832,23 @@ def phase_kernels(seed):
         "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, valid), 20),
         "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), 50),
         # the kernel reads only the valid slots' K/V (invalid tiles skipped)
-        "flops": 4 * HD * B * K * G * n_valid,
-        "bytes": 2 * (2 * q.numel() + 2 * B * n_valid * K * HD) + T,
+        "flops": decode_work(B, K, G, HD, T, n_valid)[0],
+        "bytes": decode_work(B, K, G, HD, T, n_valid)[1],
         "device_ms": device_ms(lambda: da.decode_attention(q, k, v, valid),
                                20),
         "graph_ms": graph_ms(lambda: da.decode_attention(q, k, v, valid)),
     }
-    # deepseek's shape (16 KV heads of one query head, head_dim 128),
-    # gemma-7b's (head_dim 256) and dbrx-132b's (6 query heads a KV head)
-    for arch, nkv, g, hd in DECODE_SHAPES:
-        q16 = randn(B, 1, nkv, g, hd, dtype=bf)
-        k16, v16 = (randn(B, T, nkv, hd, dtype=bf) for _ in range(2))
+    # every served decode shape, held and timed beside SDPA (CUDA events
+    # and device time) and the bound
+    for arch, (b, nkv, g, hd, T, n_valid) in DECODE_SHAPES:
+        valid = torch.arange(T, device="cuda") < n_valid
+        q16 = randn(b, 1, nkv, g, hd, dtype=bf)
+        k16, v16 = (randn(b, T, nkv, hd, dtype=bf) for _ in range(2))
         k16h, v16h = (t.permute(0, 2, 1, 3).contiguous() for t in (k16, v16))
-        q16h = q16.reshape(B, nkv * g, 1, hd)
-        nbytes = 2 * (2 * q16.numel() + 2 * B * n_valid * nkv * hd) + T
-        bound = max(4 * hd * B * nkv * g * n_valid / PEAK_BF16,
-                    nbytes / PEAK_BW) * 1e3
+        q16h = q16.reshape(b, nkv * g, 1, hd)
+        mask = valid[None, None, None, :]
+        flops, nbytes = decode_work(b, nkv, g, hd, T, n_valid)
+        bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
 
         def kern16():
             return da.decode_attention(q16, k16, v16, valid)
@@ -836,11 +859,12 @@ def phase_kernels(seed):
         def sdpa16():
             return sdpa(q16h, k16h, v16h, attn_mask=mask)
 
-        shape = f"q ({B},1,{nkv},{g},{hd}), k/v ({B},{T},{nkv},{hd})"
-        hold("decode_attention", f"{arch} {shape} pos{pos}", kern16(),
+        shape = f"q ({b},1,{nkv},{g},{hd}), k/v ({b},{T},{nkv},{hd})"
+        hold("decode_attention", f"{arch} {shape} {n_valid} valid", kern16(),
              plain16(), "bfloat16")
         print(f"[kernels] decode_attention bf16 {arch} {shape}, {n_valid} of "
-              f"{T} slots valid: CUDA events "
+              f"{T} slots valid ({da.n_splits(b, nkv, T)} blocks a KV "
+              f"head): CUDA events "
               f"{cuda_ms(kern16, 50):.4f} ms, torch.profiler device time "
               f"{fmt_ms(device_ms(kern16, 20))}, CUDA graph of 20 calls "
               f"{graph_ms(kern16):.4f} ms a call; plain "

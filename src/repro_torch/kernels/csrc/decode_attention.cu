@@ -12,54 +12,50 @@
 //
 // What bounds it: every cached key and value is read once and used by the
 // G query heads of its KV head, about G operations per byte against the
-// card's ~295: bytes bound it. The design is about bytes in flight and
-// launches, not tensor-core rate.
+// card's ~295: bytes bound it. What a call costs beyond the bytes is
+// latency: the mask and q before the first load, the first load's trip
+// from HBM, each tile's chain of products and softmax, and the merges.
 //
-// Design. Grid (n_split, B*K), the n_split blocks of one (b, kv head) one
-// cluster (at most 8, the portable size). Each block first reads the whole
-// mask into a bitmap of 64-key tiles; a tile whose 64 entries are all
-// false is never loaded (an all-false mask selects every tile). The
-// selected tiles are dealt out in order, tiles [r*n/ns, (r+1)*n/ns) to
-// block r, so the splits balance on the bytes the mask needs. K and V
-// tiles stream into shared memory as they are (bf16 or f32) by TMA (a 4-D
-// map over (hd, K, T, B), 128-byte boxes, 128-byte swizzle; rows past T
-// zero-filled) through a ring of NST stages, one full mbarrier a stage;
-// thread 0 issues the loads, NST tiles ahead. The mask's key bits stay in
-// shared memory for the softmax.
+// Grid (n_split, B*K), the n_split blocks of one (b, kv head) one cluster
+// (at most 8, the portable size). Each block first reads the whole mask
+// into a bitmap of 64-key tiles; a tile whose 64 entries are all false is
+// never loaded (an all-false mask selects every tile). The selected tiles
+// are dealt out in order, tiles [r*n/ns, (r+1)*n/ns) to block r, so the
+// splits balance on the bytes the mask needs. K and V tiles stream into
+// shared memory as they are (bf16 or f32) by TMA (a 4-D map over (hd, K,
+// T, B), 128-byte boxes, 128-byte swizzle; rows past T zero-filled)
+// through a ring of stages, one full mbarrier a stage.
 //
-// bf16 (the serving path): the products on mma.sync m16n8k16 with f32
-// accumulation, the keys on the M side and the G query heads on N (G <= 8
-// is one n-tile, G <= 16 two). Per warp a tile is a few mma: Q K^T with the
-// warp's 16 keys as A (ldmatrix from the swizzled tile) and q as B,
-// loaded into registers once; O^T += V^T P^T with the warp's hd/4 columns
-// as A (ldmatrix.trans) and P, rounded to bf16 as in flash attention, as
-// B. A first version on f32 FMAs (a thread a key for Q K^T, a thread a
-// 16-byte column chunk for P V) measured 0.039 ms at qwen's shape: with 4
-// warps a block it was bound by the latency of its dependent FMAs, not by
-// bytes. wgmma would need 64 rows of M: G is at most 16, and 64 keys as M
-// would put the softmax's reduction across warpgroup lanes for no gain in
-// a kernel bound by bytes.
-// f32: the same ring and softmax, the products as f32 FMAs from shared
-// memory (the tensor cores would round f32 inputs past the 1e-4
-// tolerance): Q K^T a thread a (key, half of hd), P V a thread a (16-byte
-// column chunk, head group, key group). It serves the f32 tests and
-// stacks, not the served bf16 models.
+// bf16 (the serving path), `decode_bf16`: four consumer warps and a
+// producer warp. Each consumer warp owns 16 keys of every tile and keeps
+// its own online softmax (m, l) and O in registers, FlashAttention-2's
+// layout with the G query heads as the rows of m16n8k16 mma.sync (G <= 16
+// is one m-tile; q's A fragments loaded once): S = Q K^T over the warp's
+// 16 keys (K by ldmatrix from the swizzled tile), the masks and the
+// softmax on the score fragments (a head's 16 keys lie in one quad of
+// lanes: two shuffles for the max, the sum kept per lane to the end), and
+// O += P V with P, rounded to bf16 as in flash attention, straight from
+// the score fragments as the A operand (V by ldmatrix.trans). No score
+// goes through shared memory and no barrier joins the warps a tile: a
+// warp arrives on the stage's empty mbarrier when it is done, and the
+// producer warp reloads the stage once all four have. The warps merge
+// their (m, l, O) once, through shared memory (the ring, free by then),
+// and the blocks of a cluster then merge theirs through distributed
+// shared memory, each block computing its slice of the output from all
+// blocks' partials: no partial buffer in device memory, no second
+// launch, no scratch allocated by the caller, no host synchronisation
+// (the launch can be captured in a CUDA graph).
 //
-// The softmax runs on the f32 scores in shared memory, all heads at once
-// (8 to 32 lanes a head). The blocks of a cluster then merge their
-// (m, l, acc) through distributed shared memory, each block computing its
-// slice of the output from all blocks' partials: no partial buffer in
-// device memory, no second launch, no scratch allocated by the caller, no
-// host synchronisation (the launch can be captured in a CUDA graph).
+// The planner (`n_splits` in decode_attention.py) aims at one block an
+// SM: two blocks an SM made 256 blocks (64 clusters of 4) at B*K = 64,
+// more than the card placed at once, and left a tail wave.
 //
-// Where the time goes at qwen's served shape (8 splits of 16 (b, kv head)
-// pairs, 10 of 16 tiles valid; about 0.009 ms on the H100): an empty
-// launch of this grid ~0.9 us, the prologue (mask and q loads, tile
-// selection) ~2 us, the two cluster barriers ~1 us, and ~1 us each for
-// the first TMA wait, Q K^T, the softmax, P V and the merge, a chain of
-// latencies. Two teams of 4 warps a block, each on every other tile,
-// measured no faster; non-portable clusters of 12 blocks ~10% faster and
-// of 16 slower, so the portable 8 stays.
+// f32: `decode_f32`, the ring as above, the products as f32 FMAs from
+// shared memory (the tensor cores would round f32 inputs past the 1e-4
+// tolerance): Q K^T a thread a (key, half of hd), the softmax of all
+// heads on the scores in shared memory, P V a thread a (16-byte column
+// chunk, head group, key group), three barriers a tile. It serves the
+// f32 tests and stacks, not the served bf16 models.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,68 +72,19 @@ using namespace hopper;
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr int BK = 64;       // keys per tile (the mask's granularity)
-constexpr int NT = 128;      // threads per block
 constexpr int MAXG = 16;     // query heads per KV head
-constexpr int SPL = BK + 1;  // row stride of the score tile
 constexpr int MAX_SPLIT = 8; // the portable cluster size
 constexpr int SMEM_MAX = 232448;
 
-template <typename T, int HD>
-struct Dec {
-  static constexpr int ES = sizeof(T);
-  static constexpr int VEC = 16 / ES;         // elements of a 16-byte chunk
-  static constexpr int CPR = HD * ES / 16;    // chunks of a key row
-  static constexpr int NBOX = HD * ES / 128;  // 128-byte TMA boxes of a row
-  static constexpr int R = NT / CPR;          // threads per column chunk in P V
-  static constexpr int TILE = BK * HD * ES;   // bytes of a K or V tile
-  static constexpr int STAGE = 2 * TILE;
-  static constexpr int NST =
-      STAGE <= 16384 ? 4 : STAGE <= 32768 ? 3 : STAGE <= 65536 ? 2 : 1;
-  static constexpr int MAXNG = 8;  // heads of a thread in P V (G <= 16, GS >= 2)
-  static_assert(CPR % 2 == 0 && R >= 2, "tile shape");
-
-  // largest power of two <= min(G, R): the head groups of P V
-  __host__ __device__ static int head_groups(int G) {
-    int gs = 1;
-    while (gs * 2 <= G && gs * 2 <= R) gs *= 2;
-    return gs;
-  }
-  // bf16: the products on mma.sync (q in registers, one score half, no
-  // key groups); f32: on FMAs
-  static constexpr bool MMA = ES == 2;
-  static constexpr int MT = HD / 64;  // 16-column m-tiles of a warp in P V (mma)
-  // shared memory, in bytes from a 1024-aligned base: the ring, Qs (f32),
-  // the score tile (two halves of hd in f32), m/l/corr, the key-group
-  // partials, the tile bitmap, the key bitmap, the barriers
-  struct Layout {
-    int qs, sp, ml, red, words, keys, bars, total;
-    __host__ __device__ Layout(int G, int Tk) {
-      const int js = MMA ? 1 : R / head_groups(G);
-      const int W = ((Tk + BK - 1) / BK + 31) / 32;
-      qs = NST * STAGE;
-      sp = qs + (MMA ? 0 : 4 * G * HD);
-      ml = sp + 4 * (MMA ? 1 : 2) * G * SPL;
-      red = ml + 4 * 3 * G;
-      words = red + 4 * js * G * HD;
-      keys = words + 4 * W;
-      bars = (keys + 8 * ((Tk + BK - 1) / BK) + 7) & ~7;
-      total = bars + 8 * NST + 1024;
-    }
-  };
-};
-
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
+// stages of a K/V ring whose stage (a K and a V tile) is `bytes`
+__host__ __device__ constexpr int ring_stages(int bytes) {
+  return bytes <= 16384 ? 4 : bytes <= 32768 ? 3 : bytes <= 65536 ? 2 : 1;
 }
 
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// the 16-byte chunk c of key row j of a tile at shared address t (boxes
+// of 128-byte rows, 128-byte swizzle)
+__device__ __forceinline__ uint32_t chunk(uint32_t t, int j, int c) {
+  return t + (c / 8) * BK * 128 + j * 128 + (((c % 8) ^ (j & 7)) << 4);
 }
 
 // the selected tiles: those of `words` set, or every tile when `all`
@@ -174,67 +121,15 @@ struct Tiles {
   }
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-decode_fwd(const __grid_constant__ CUtensorMap kmap,
-           const __grid_constant__ CUtensorMap vmap, const T* __restrict__ q,
-           const unsigned char* __restrict__ valid, T* __restrict__ o, int Tk,
-           int K, int G, float scale_log2) {
-  using D = Dec<T, HD>;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int ns = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int bk = blockIdx.y, b = bk / K, kh = bk % K;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4;  // mma fragment row / column pair
-  const int GS = D::MMA ? 1 : D::head_groups(G), JS = D::MMA ? 1 : D::R / GS;
-  const int nt = (Tk + BK - 1) / BK;
-  const typename D::Layout L(G, Tk);
-  const int W = (nt + 31) / 32;
-
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  const uint32_t base = smem_addr(sm);
-  float* Qs = reinterpret_cast<float*>(sm + L.qs);   // f32: G x HD, pre-scaled
-  float* Sp = reinterpret_cast<float*>(sm + L.sp);   // (1 or 2) x G x SPL
-  float* ms = reinterpret_cast<float*>(sm + L.ml);   // G running max (log2)
-  float* ls = ms + G;                                // G running sum
-  float* cs = ls + G;                                // G rescale of a tile
-  float* red = reinterpret_cast<float*>(sm + L.red); // JS x G x HD
-  uint32_t* words = reinterpret_cast<uint32_t*>(sm + L.words);  // a bit a tile
-  uint32_t* keys = reinterpret_cast<uint32_t*>(sm + L.keys);    // a bit a key
-  auto full = [&](int s) { return base + L.bars + 8u * s; };
-
-  if (tid == 0) {
-    prefetch_map(&kmap);
-    prefetch_map(&vmap);
-    for (int s = 0; s < D::NST; ++s) mbar_init(full(s), 1);
-    mbar_init_fence();
-  }
-  const T* qb = q + (long)bk * G * HD;
-  // bf16: q as the B fragments of Q K^T, head 8 nb + gq, columns 16 kk +
-  // 2 tq (+ 8) of hd; heads past G are 0
-  uint32_t qf[2][D::MMA ? HD / 16 : 1][2];
-  if constexpr (D::MMA) {
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int g = 8 * nb + gq;
-        const uint32_t* p = reinterpret_cast<const uint32_t*>(qb + g * HD + 16 * kk + 2 * tq);
-        qf[nb][kk][0] = g < G ? p[0] : 0u;
-        qf[nb][kk][1] = g < G ? p[4] : 0u;
-      }
-  } else {
-    for (int i = tid; i < G * HD; i += NT) Qs[i] = qb[i] * scale_log2;
-  }
-  for (int g = tid; g < G; g += NT) {
-    ms[g] = NEG_INF;
-    ls[g] = 0.f;
-  }
-  // the mask as bitmaps: bit t of words[w] set if tile 32w + t has a valid
-  // entry; bit k of keys[2t + h] if key 64t + 32h + k is valid
-  for (int t0 = 0; t0 < W * 32; t0 += NT) {
+// The mask as bitmaps, by all `nthr` threads (a multiple of 32): bit t of
+// words[w] set if tile 32w + t has a valid entry; bit k of keys[2t + h] if
+// key 64t + 32h + k is valid.
+__device__ __forceinline__ void read_mask(const unsigned char* valid, int Tk,
+                                          uint32_t* words, uint32_t* keys,
+                                          int tid, int nthr) {
+  const int nt = (Tk + BK - 1) / BK, W = (nt + 31) / 32;
+  const int warp = tid / 32;
+  for (int t0 = 0; t0 < W * 32; t0 += nthr) {
     const int tile = t0 + tid;
     bool any = false;
     if (tile < nt) {
@@ -260,16 +155,404 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
       any = (kb[0] | kb[1]) != 0u;
     }
     const uint32_t bal = __ballot_sync(0xffffffffu, any);
-    if (lane == 0 && t0 / 32 + warp < W) words[t0 / 32 + warp] = bal;
+    if (tid % 32 == 0 && t0 / 32 + warp < W) words[t0 / 32 + warp] = bal;
   }
-  __syncthreads();
+}
 
+// This block's share of the selected tiles (after read_mask and a
+// barrier): `tiles`, and [lo, lo + n_mine) of their order.
+__device__ __forceinline__ Tiles my_tiles(const uint32_t* words, int Tk,
+                                          int rank, int ns, int& lo,
+                                          int& n_mine) {
+  const int nt = (Tk + BK - 1) / BK, W = (nt + 31) / 32;
   int n_sel = 0;
   for (int w = 0; w < W; ++w) n_sel += __popc(words[w]);
   const Tiles tiles{words, W, nt, n_sel == 0};
   if (n_sel == 0) n_sel = nt;
-  const int lo = (int)((long)rank * n_sel / ns);
-  const int n_mine = (int)((long)(rank + 1) * n_sel / ns) - lo;
+  lo = (int)((long)rank * n_sel / ns);
+  n_mine = (int)((long)(rank + 1) * n_sel / ns) - lo;
+  return tiles;
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// The merge of a cluster's blocks, after a cluster barrier: each block's
+// (ms, ls) per head and red (G x HD, unnormalised) in its shared memory
+// (ms = -inf for a block without keys); this block writes outputs [rank E
+// / ns, (rank+1) E / ns) of its (b, kv head)'s E = G HD.
+template <typename T>
+__device__ __forceinline__ void cluster_merge(cg::cluster_group& cluster,
+                                              int ns, int rank, float* ms,
+                                              float* ls, float* red, T* ob,
+                                              int G, int HD, int tid,
+                                              int nthr) {
+  const int E = G * HD;
+  const int e_lo = (int)((long)rank * E / ns), e_hi = (int)((long)(rank + 1) * E / ns);
+  for (int e = e_lo + tid; e < e_hi; e += nthr) {
+    const int g = e / HD;
+    // every remote load issued before any is used
+    float mr[MAX_SPLIT], lr[MAX_SPLIT], ar[MAX_SPLIT], M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      mr[r] = r < ns ? cluster.map_shared_rank(ms, r)[g] : -INFINITY;
+      lr[r] = r < ns ? cluster.map_shared_rank(ls, r)[g] : 0.f;
+      ar[r] = r < ns ? cluster.map_shared_rank(red, r)[e] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) M = fmaxf(M, mr[r]);
+    float Lsum = 0.f, A = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      const float w = r < ns ? exp2f(mr[r] - M) : 0.f;
+      Lsum += lr[r] * w;
+      A += ar[r] * w;
+    }
+    ob[e] = from_f<T>(A / fmaxf(Lsum, 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------- bf16
+
+constexpr int NW = 4;             // consumer warps of the bf16 kernel
+constexpr int NT16 = 32 * (NW + 1);  // and the producer warp
+
+template <int HD>
+struct Bf16Dec {
+  static constexpr int NBOX = HD * 2 / 128;  // 128-byte TMA boxes of a row
+  static constexpr int TILE = BK * HD * 2;   // bytes of a K or V tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int NST = ring_stages(STAGE);
+  static constexpr int KS = HD / 16;         // k-steps of Q K^T
+  static constexpr int NN = HD / 8;          // 8-column n-tiles of O
+  // the warps' O partials reuse the ring once every tile is consumed
+  static_assert(NW * MAXG * HD * 4 <= NST * STAGE, "partials fit the ring");
+  // shared memory, in bytes from a 1024-aligned base: the ring, the warps'
+  // (m, l), the block's (m, l), the tile bitmap, the key bitmap, the full
+  // and empty barriers
+  struct Layout {
+    int wml, ml, words, keys, bars, total;
+    __host__ __device__ Layout(int Tk) {
+      const int nt = (Tk + BK - 1) / BK, W = (nt + 31) / 32;
+      wml = NST * STAGE;
+      ml = wml + 4 * 2 * NW * MAXG;
+      words = ml + 4 * 2 * MAXG;
+      keys = words + 4 * W;
+      bars = (keys + 8 * nt + 7) & ~7;
+      total = bars + 8 * 2 * NST + 1024;
+    }
+  };
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT16)
+decode_bf16(const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            const __nv_bfloat16* __restrict__ q,
+            const unsigned char* __restrict__ valid,
+            __nv_bfloat16* __restrict__ o, int Tk, int K, int G,
+            float scale_log2) {
+  using D = Bf16Dec<HD>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ns = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bk = blockIdx.y, b = bk / K, kh = bk % K;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // mma fragment row / column pair
+  const typename D::Layout L(Tk);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(sm);
+  float* wO = reinterpret_cast<float*>(sm);          // NW x G x HD, after the tiles
+  float* wm = reinterpret_cast<float*>(sm + L.wml);  // NW x MAXG running max
+  float* wl = wm + NW * MAXG;                        // NW x MAXG running sum
+  float* ms = reinterpret_cast<float*>(sm + L.ml);   // the block's, MAXG each
+  float* ls = ms + MAXG;
+  uint32_t* words = reinterpret_cast<uint32_t*>(sm + L.words);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(sm + L.keys);
+  auto full = [&](int s) { return base + L.bars + 8u * s; };
+  auto empty = [&](int s) { return base + L.bars + 8u * (D::NST + s); };
+
+  if (tid == 0) {
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    for (int s = 0; s < D::NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NW);
+    }
+    mbar_init_fence();
+  }
+  // q as the A fragments of Q K^T: rows (heads) gq and gq + 8, columns
+  // 16 kk + 2 tq (+ 8) of hd; heads past G are 0
+  uint32_t qf[D::KS][4];
+  const __nv_bfloat16* qb = q + (long)bk * G * HD;
+#pragma unroll
+  for (int kk = 0; kk < D::KS; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = gq + 8 * h;
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(qb + g * HD + 16 * kk + 2 * tq);
+      qf[kk][h] = g < G && warp < NW ? p[0] : 0u;
+      qf[kk][2 + h] = g < G && warp < NW ? p[4] : 0u;
+    }
+  read_mask(valid, Tk, words, keys, tid, NT16);
+  __syncthreads();
+  int lo, n_mine;
+  const Tiles tiles = my_tiles(words, Tk, rank, ns, lo, n_mine);
+
+  // O: element e of n-tile n is head gq + 8 (e / 2), column 8 n + 2 tq +
+  // e % 2; m and l of heads gq and gq + 8 (l this lane's share)
+  float acc[D::NN][4];
+#pragma unroll
+  for (int n = 0; n < D::NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (warp == NW) {
+    // producer: the block's tiles in order, each stage reloaded once all
+    // consumer warps are done with it
+    if (lane == 0 && n_mine > 0) {
+      int tile = tiles.nth(lo);
+      for (int i = 0; i < n_mine; ++i) {
+        const int s = i % D::NST;
+        if (i >= D::NST) mbar_wait(empty(s), ((i / D::NST) - 1) & 1);
+        const uint32_t kd = base + s * D::STAGE, vd = kd + D::TILE;
+        mbar_expect_tx(full(s), D::STAGE);
+#pragma unroll
+        for (int c = 0; c < D::NBOX; ++c)
+          tma_load_4d(kd + c * BK * 128, &kmap, full(s), c * 64, kh, tile * BK, b);
+#pragma unroll
+        for (int c = 0; c < D::NBOX; ++c)
+          tma_load_4d(vd + c * BK * 128, &vmap, full(s), c * 64, kh, tile * BK, b);
+        tile = tiles.next(tile);
+      }
+    }
+  } else {
+    const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix, row
+    int ctile = n_mine > 0 ? tiles.nth(lo) : 0;
+    for (int i = 0; i < n_mine; ++i) {
+      const int s = i % D::NST;
+      mbar_wait(full(s), (i / D::NST) & 1);
+      const uint32_t Kt = base + s * D::STAGE, Vt = Kt + D::TILE;
+      // S = Q K^T of this warp's keys 16 warp + 8 j + [0, 8), j = 0, 1
+      float sc[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D::KS; ++kk) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, chunk(Kt, 16 * warp + 8 * (mi >> 1) + r8, 2 * kk + (mi & 1)));
+        mma_bf16(sc[0], qf[kk], kb[0], kb[1]);
+        mma_bf16(sc[1], qf[kk], kb[2], kb[3]);
+      }
+      // the masks and the online softmax in log2 units: keys past T are
+      // absent (-inf, weight 0), invalid ones NEG_INF
+      const uint32_t kw = keys[2 * ctile + (warp >> 1)] >> (16 * (warp & 1));
+      const int k0 = ctile * BK + 16 * warp;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = 8 * j + 2 * tq + (e & 1);
+          const float x = sc[j][e] * scale_log2;
+          sc[j][e] = k0 + kl >= Tk ? -INFINITY : ((kw >> kl) & 1u) ? x : NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        corr[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(sc[j][e] - m[e >> 1]);
+          sc[j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+      for (int n = 0; n < D::NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      // O += P V: P (bf16) is the A fragment of the warp's 16 keys
+      const uint32_t pa[4] = {pack_bf16x2(sc[0][0], sc[0][1]),
+                              pack_bf16x2(sc[0][2], sc[0][3]),
+                              pack_bf16x2(sc[1][0], sc[1][1]),
+                              pack_bf16x2(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int nn = 0; nn < HD / 16; ++nn) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, chunk(Vt, 16 * warp + 8 * (mi & 1) + r8, 2 * nn + (mi >> 1)));
+        mma_bf16(acc[2 * nn], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * nn + 1], pa, vb[2], vb[3]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+      ctile = tiles.next(ctile);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+  }
+  __syncthreads();  // every tile consumed: the ring holds the partials now
+
+  if (warp < NW) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = gq + 8 * h;
+      if (g < G) {
+        if (tq == 0) {
+          wm[warp * MAXG + g] = m[h];
+          wl[warp * MAXG + g] = l[h];
+        }
+#pragma unroll
+        for (int n = 0; n < D::NN; ++n)
+          *reinterpret_cast<float2*>(wO + (warp * G + g) * HD + 8 * n + 2 * tq) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  // the warps' merge into warp 0's slot: this block's partial
+  for (int e = tid; e < G * HD; e += NT16) {
+    const int g = e / HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, wm[w * MAXG + g]);
+    float A = 0.f, Ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = ex2(wm[w * MAXG + g] - M);
+      A += wO[w * G * HD + e] * c;
+      Ls += wl[w * MAXG + g] * c;
+    }
+    wO[e] = A;
+    if (e % HD == 0) {
+      ms[g] = n_mine > 0 ? M : -INFINITY;  // an empty split weighs nothing
+      ls[g] = Ls;
+    }
+  }
+  if (ns > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  cluster_merge(cluster, ns, rank, ms, ls, wO, o + (long)bk * G * HD, G, HD,
+                tid, NT16);
+  if (ns > 1) cluster.sync();  // no block leaves while another reads it
+}
+
+// ---------------------------------------------------------------- f32
+
+constexpr int NT = 128;      // threads of the f32 kernel
+constexpr int SPL = BK + 1;  // row stride of its score tile
+
+template <int HD>
+struct F32Dec {
+  static constexpr int VEC = 4;               // floats of a 16-byte chunk
+  static constexpr int CPR = HD / 4;          // chunks of a key row
+  static constexpr int NBOX = HD * 4 / 128;   // 128-byte TMA boxes of a row
+  static constexpr int R = NT / CPR;          // threads per column chunk in P V
+  static constexpr int TILE = BK * HD * 4;    // bytes of a K or V tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int NST = ring_stages(STAGE);
+  static constexpr int MAXNG = 8;  // heads of a thread in P V (G <= 16, GS >= 2)
+  static_assert(CPR % 2 == 0 && R >= 2, "tile shape");
+
+  // largest power of two <= min(G, R): the head groups of P V
+  __host__ __device__ static int head_groups(int G) {
+    int gs = 1;
+    while (gs * 2 <= G && gs * 2 <= R) gs *= 2;
+    return gs;
+  }
+  // shared memory, in bytes from a 1024-aligned base: the ring, Qs, the
+  // score tile (two halves of hd), m/l/corr, the key-group partials, the
+  // tile bitmap, the key bitmap, the barriers
+  struct Layout {
+    int qs, sp, ml, red, words, keys, bars, total;
+    __host__ __device__ Layout(int G, int Tk) {
+      const int js = R / head_groups(G);
+      const int W = ((Tk + BK - 1) / BK + 31) / 32;
+      qs = NST * STAGE;
+      sp = qs + 4 * G * HD;
+      ml = sp + 4 * 2 * G * SPL;
+      red = ml + 4 * 3 * G;
+      words = red + 4 * js * G * HD;
+      keys = words + 4 * W;
+      bars = (keys + 8 * ((Tk + BK - 1) / BK) + 7) & ~7;
+      total = bars + 8 * NST + 1024;
+    }
+  };
+};
+
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+decode_f32(const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap, const float* __restrict__ q,
+           const unsigned char* __restrict__ valid, float* __restrict__ o,
+           int Tk, int K, int G, float scale_log2) {
+  using D = F32Dec<HD>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ns = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int bk = blockIdx.y, b = bk / K, kh = bk % K;
+  const int tid = threadIdx.x;
+  const int GS = D::head_groups(G), JS = D::R / GS;
+  const typename D::Layout L(G, Tk);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(sm);
+  float* Qs = reinterpret_cast<float*>(sm + L.qs);   // G x HD, pre-scaled
+  float* Sp = reinterpret_cast<float*>(sm + L.sp);   // 2 x G x SPL
+  float* ms = reinterpret_cast<float*>(sm + L.ml);   // G running max (log2)
+  float* ls = ms + G;                                // G running sum
+  float* cs = ls + G;                                // G rescale of a tile
+  float* red = reinterpret_cast<float*>(sm + L.red); // JS x G x HD
+  uint32_t* words = reinterpret_cast<uint32_t*>(sm + L.words);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(sm + L.keys);
+  auto full = [&](int s) { return base + L.bars + 8u * s; };
+
+  if (tid == 0) {
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    for (int s = 0; s < D::NST; ++s) mbar_init(full(s), 1);
+    mbar_init_fence();
+  }
+  const float* qb = q + (long)bk * G * HD;
+  for (int i = tid; i < G * HD; i += NT) Qs[i] = qb[i] * scale_log2;
+  for (int g = tid; g < G; g += NT) {
+    ms[g] = NEG_INF;
+    ls[g] = 0.f;
+  }
+  read_mask(valid, Tk, words, keys, tid, NT);
+  __syncthreads();
+  int lo, n_mine;
+  const Tiles tiles = my_tiles(words, Tk, rank, ns, lo, n_mine);
 
   auto issue = [&](int i, int tile) {
     const int s = i % D::NST;
@@ -277,12 +560,10 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
     mbar_expect_tx(full(s), D::STAGE);
 #pragma unroll
     for (int c = 0; c < D::NBOX; ++c)
-      tma_load_4d(kd + c * BK * 128, &kmap, full(s), c * (128 / D::ES), kh,
-                  tile * BK, b);
+      tma_load_4d(kd + c * BK * 128, &kmap, full(s), c * 32, kh, tile * BK, b);
 #pragma unroll
     for (int c = 0; c < D::NBOX; ++c)
-      tma_load_4d(vd + c * BK * 128, &vmap, full(s), c * (128 / D::ES), kh,
-                  tile * BK, b);
+      tma_load_4d(vd + c * BK * 128, &vmap, full(s), c * 32, kh, tile * BK, b);
   };
   int ptile = 0;  // thread 0: the next tile to load
   if (tid == 0 && n_mine > 0) {
@@ -292,22 +573,15 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
       ptile = tiles.next(ptile);
     }
   }
-  // the 16-byte chunk c of key row j of a tile at shared address t
-  auto chunk = [](uint32_t t, int j, int c) {
-    return t + (c / 8) * BK * 128 + j * 128 + (((c % 8) ^ (j & 7)) << 4);
-  };
 
-  // f32, P V: this thread's column chunk, head group and key group
+  // P V: this thread's column chunk, head group and key group; acc[head]
+  // holds columns ch VEC + [0, VEC)
   const int ch = tid % D::CPR, gs = (tid / D::CPR) % GS, js = tid / D::CPR / GS;
-  constexpr int NA = D::MMA ? D::MT * 2 : D::MAXNG;
-  constexpr int NE = D::MMA ? 4 : D::VEC;
-  // bf16: O^T fragments [mt * 2 + nb]: column 16 (warp MT + mt) + gq (+ 8),
-  // head 8 nb + 2 tq (+ 1); f32: [head] of columns ch VEC + [0, VEC)
-  float acc[NA][NE];
+  float acc[D::MAXNG][D::VEC];
 #pragma unroll
-  for (int i = 0; i < NA; ++i)
+  for (int i = 0; i < D::MAXNG; ++i)
 #pragma unroll
-    for (int e = 0; e < NE; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < D::VEC; ++e) acc[i][e] = 0.f;
 
   int ctile = n_mine > 0 ? tiles.nth(lo) : 0;
   for (int i = 0; i < n_mine; ++i) {
@@ -316,24 +590,7 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
     mbar_wait(full(s), (i / D::NST) & 1);
     const uint32_t Kt = base + s * D::STAGE, Vt = Kt + D::TILE;
 
-    if constexpr (D::MMA) {  // S = Q K^T (scale log2e), this warp's 16 keys
-      float sc[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int mi = lane >> 3, j = 16 * warp + (lane & 7) + 8 * (mi & 1);
-        uint32_t af[4];
-        ldmatrix_x4(af, chunk(Kt, j, 2 * kk + (mi >> 1)));
-        mma_bf16(sc[0], af, qf[0][kk][0], qf[0][kk][1]);
-        if (G > 8) mma_bf16(sc[1], af, qf[1][kk][0], qf[1][kk][1]);
-      }
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int g = 8 * nb + 2 * tq + (e & 1);
-          if (g < G) Sp[g * SPL + 16 * warp + gq + 8 * (e >> 1)] = sc[nb][e] * scale_log2;
-        }
-    } else {  // thread (key j, half dh of hd)
+    {  // S = Q K^T: thread (key j, half dh of hd)
       const int j = tid % BK, dh = tid / BK;
       float sc[MAXG];
 #pragma unroll
@@ -346,15 +603,11 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
-            const float4* qp = reinterpret_cast<const float4*>(Qs + g * HD + c * D::VEC);
-#pragma unroll
-            for (int u = 0; u < D::VEC / 4; ++u) {
-              const float4 qq = qp[u];
-              sc[g] = fmaf(qq.x, kf[4 * u], sc[g]);
-              sc[g] = fmaf(qq.y, kf[4 * u + 1], sc[g]);
-              sc[g] = fmaf(qq.z, kf[4 * u + 2], sc[g]);
-              sc[g] = fmaf(qq.w, kf[4 * u + 3], sc[g]);
-            }
+            const float4 qq = *reinterpret_cast<const float4*>(Qs + g * HD + c * D::VEC);
+            sc[g] = fmaf(qq.x, kf[0], sc[g]);
+            sc[g] = fmaf(qq.y, kf[1], sc[g]);
+            sc[g] = fmaf(qq.z, kf[2], sc[g]);
+            sc[g] = fmaf(qq.w, kf[3], sc[g]);
           }
         }
       }
@@ -376,8 +629,7 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
       for (int k = 0; k < 8; ++k) {
         if (k < KPL) {
           const int j = li + LPH * k;
-          const float sv = D::MMA ? Sp[g * SPL + j]
-                                  : Sp[g * SPL + j] + Sp[(G + g) * SPL + j];
+          const float sv = Sp[g * SPL + j] + Sp[(G + g) * SPL + j];
           x[k] = t0 + j >= Tk ? -INFINITY
                               : ((kw[j >> 5] >> (j & 31)) & 1u) ? sv : NEG_INF;
           mx = fmaxf(mx, x[k]);
@@ -406,54 +658,26 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
     }
     __syncthreads();
 
-    if constexpr (D::MMA) {  // O^T = O^T corr + V^T P^T, this warp's columns
+    // acc = acc corr + P V over this thread's keys
 #pragma unroll
-      for (int a = 0; a < NA; ++a)
+    for (int gi = 0; gi < D::MAXNG; ++gi) {
+      const int g = gs + gi * GS;
+      if (g < G) {
+        const float c = cs[g];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int g = 8 * (a & 1) + 2 * tq + (e & 1);
-          if (g < G) acc[a][e] *= cs[g];
-        }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t pb[2][2];
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          const int g = 8 * nb + gq;
-          const float* pp = Sp + g * SPL + 16 * kk + 2 * tq;
-          pb[nb][0] = g < G ? pack_bf16x2(pp[0], pp[1]) : 0u;
-          pb[nb][1] = g < G ? pack_bf16x2(pp[8], pp[9]) : 0u;
-        }
-#pragma unroll
-        for (int mt = 0; mt < D::MT; ++mt) {
-          const int mi = lane >> 3, j = 16 * kk + (lane & 7) + 8 * (mi >> 1);
-          uint32_t af[4];
-          ldmatrix_x4_trans(af, chunk(Vt, j, 2 * (warp * D::MT + mt) + (mi & 1)));
-          mma_bf16(acc[2 * mt], af, pb[0][0], pb[0][1]);
-          if (G > 8) mma_bf16(acc[2 * mt + 1], af, pb[1][0], pb[1][1]);
-        }
+        for (int e = 0; e < D::VEC; ++e) acc[gi][e] *= c;
       }
-    } else {  // acc = acc corr + P V over this thread's keys
+    }
+    for (int j = js; j < BK; j += JS) {
+      float vf[D::VEC];
+      unpack(*reinterpret_cast<const uint4*>(sm + (chunk(Vt, j, ch) - base)), vf);
 #pragma unroll
       for (int gi = 0; gi < D::MAXNG; ++gi) {
         const int g = gs + gi * GS;
         if (g < G) {
-          const float c = cs[g];
+          const float p = Sp[g * SPL + j];
 #pragma unroll
-          for (int e = 0; e < NE; ++e) acc[gi][e] *= c;
-        }
-      }
-      for (int j = js; j < BK; j += JS) {
-        float vf[D::VEC];
-        unpack(*reinterpret_cast<const uint4*>(sm + (chunk(Vt, j, ch) - base)), vf);
-#pragma unroll
-        for (int gi = 0; gi < D::MAXNG; ++gi) {
-          const int g = gs + gi * GS;
-          if (g < G) {
-            const float p = Sp[g * SPL + j];
-#pragma unroll
-            for (int e = 0; e < NE; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
-          }
+          for (int e = 0; e < D::VEC; ++e) acc[gi][e] = fmaf(p, vf[e], acc[gi][e]);
         }
       }
     }
@@ -465,80 +689,54 @@ decode_fwd(const __grid_constant__ CUtensorMap kmap,
     ctile = tiles.next(ctile);
   }
 
-  // this block's partial into red[0 .. G*HD): key groups summed (f32)
-  if constexpr (D::MMA) {
+  // this block's partial into red[0 .. G*HD): key groups summed
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+  for (int gi = 0; gi < D::MAXNG; ++gi) {
+    const int g = gs + gi * GS;
+    if (g < G) {
+      float* dst = red + ((long)js * G + g) * HD + ch * D::VEC;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int g = 8 * (a & 1) + 2 * tq + (e & 1);
-        const int d = 16 * (warp * D::MT + a / 2) + gq + 8 * (e >> 1);
-        if (g < G) red[g * HD + d] = acc[a][e];
-      }
-    __syncthreads();
-  } else {
-#pragma unroll
-    for (int gi = 0; gi < D::MAXNG; ++gi) {
-      const int g = gs + gi * GS;
-      if (g < G) {
-        float* dst = red + ((long)js * G + g) * HD + ch * D::VEC;
-#pragma unroll
-        for (int e = 0; e < NE; ++e) dst[e] = acc[gi][e];
-      }
+      for (int e = 0; e < D::VEC; ++e) dst[e] = acc[gi][e];
     }
-    __syncthreads();
-    for (int e = tid; e < G * HD; e += NT) {
-      float a = red[e];
-      for (int k = 1; k < JS; ++k) a += red[k * G * HD + e];
-      red[e] = a;
-    }
+  }
+  __syncthreads();
+  for (int e = tid; e < G * HD; e += NT) {
+    float a = red[e];
+    for (int k = 1; k < JS; ++k) a += red[k * G * HD + e];
+    red[e] = a;
   }
   if (n_mine == 0)  // an empty split weighs nothing in the merge
     for (int g = tid; g < G; g += NT) ms[g] = -INFINITY;
   cluster.sync();
-
-  // the merge: this block writes outputs [rank E / ns, (rank+1) E / ns)
-  const int E = G * HD;
-  const int e_lo = (int)((long)rank * E / ns), e_hi = (int)((long)(rank + 1) * E / ns);
-  T* ob = o + (long)bk * E;
-  for (int e = e_lo + tid; e < e_hi; e += NT) {
-    const int g = e / HD;
-    // every remote load issued before any is used
-    float mr[MAX_SPLIT], lr[MAX_SPLIT], ar[MAX_SPLIT], M = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < MAX_SPLIT; ++r) {
-      mr[r] = r < ns ? cluster.map_shared_rank(ms, r)[g] : -INFINITY;
-      lr[r] = r < ns ? cluster.map_shared_rank(ls, r)[g] : 0.f;
-      ar[r] = r < ns ? cluster.map_shared_rank(red, r)[e] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < MAX_SPLIT; ++r) M = fmaxf(M, mr[r]);
-    float Lsum = 0.f, A = 0.f;
-#pragma unroll
-    for (int r = 0; r < MAX_SPLIT; ++r) {
-      const float w = r < ns ? exp2f(mr[r] - M) : 0.f;
-      Lsum += lr[r] * w;
-      A += ar[r] * w;
-    }
-    ob[e] = from_f<T>(A / fmaxf(Lsum, 1e-30f));
-  }
+  cluster_merge(cluster, ns, rank, ms, ls, red, o + (long)bk * G * HD, G, HD,
+                tid, NT);
   cluster.sync();  // no block leaves while another reads its shared memory
 }
+
+// ---------------------------------------------------------------- launch
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* valid, void* o, int B, int Tk, int K, int G,
                    int ns, float scale, cudaStream_t stream) {
-  using D = Dec<T, HD>;
+  constexpr bool BF = sizeof(T) == 2;
   if (G < 1 || G > MAXG || ns < 1 || ns > MAX_SPLIT || Tk < 1 ||
       (long)B * K > 65535)
     return cudaErrorInvalidValue;
-  const int smem = typename D::Layout(G, Tk).total;
+  const int smem = BF ? typename Bf16Dec<HD>::Layout(Tk).total
+                      : typename F32Dec<HD>::Layout(G, Tk).total;
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    cudaError_t err;
+    if constexpr (BF)
+      err = cudaFuncSetAttribute(decode_bf16<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_MAX);
+    else
+      err = cudaFuncSetAttribute(decode_f32<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_MAX);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -547,8 +745,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const uint64_t strides[3] = {HD * es, (uint64_t)K * HD * es,
                                (uint64_t)Tk * K * HD * es};
   const uint32_t box[4] = {(uint32_t)(128 / es), 1, BK, 1};
-  const CUtensorMapDataType type = sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapDataType type = BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap km, vm;
   if (!hopper_host::make_map(&km, type, 4, k, dims, strides, box) ||
       !hopper_host::make_map(&vm, type, 4, v, dims, strides, box))
@@ -556,7 +754,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ns, B * K);
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(BF ? NT16 : NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -566,10 +764,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_fwd<T, HD>, km, vm, static_cast<const T*>(q),
-      static_cast<const unsigned char*>(valid), static_cast<T*>(o), Tk, K, G,
-      scale * 1.4426950408889634f);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaError_t err;
+  if constexpr (BF)
+    err = cudaLaunchKernelEx(&cfg, decode_bf16<HD>, km, vm,
+                             static_cast<const T*>(q),
+                             static_cast<const unsigned char*>(valid),
+                             static_cast<T*>(o), Tk, K, G, scale_log2);
+  else
+    err = cudaLaunchKernelEx(&cfg, decode_f32<HD>, km, vm,
+                             static_cast<const T*>(q),
+                             static_cast<const unsigned char*>(valid),
+                             static_cast<T*>(o), Tk, K, G, scale_log2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

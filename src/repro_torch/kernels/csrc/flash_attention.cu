@@ -54,26 +54,46 @@
 // Ping-pong: the consumer warpgroups take turns to issue, each waiting for its turn at named barrier 4 + wg and passing it
 // on after issuing, so their products do not queue behind each other.
 //
-// GQA packing: the rows of a work tile are (position, g) pairs of all G
-// query heads of one KV head, P = floor(rows / G) positions of G heads (a
-// TMA box of (64 of hd, G, P) over q's 5-D layout), so one K/V tile serves
-// all G heads; the masks use position = s0 + row / G. Where G does not
-// divide the rows (llava's 7: 18 x 7 = 126 of 128) the rows past P*G are
-// never loaded, are zeroed once in shared memory, and are never stored. O
+// GQA packing: the rows of a work tile are (position, g) pairs of GP query
+// heads of one KV head, P = floor(rows / GP) positions of GP heads (a TMA
+// box of (64 of hd, GP, P) over q's 5-D layout), so one K/V tile serves GP
+// heads; the masks use position = s0 + row / GP. GP is G where G divides
+// 64, or where K and V of all heads are over half the L2 (llava's 49 MB);
+// else the largest divisor of G that divides 64 (dbrx's 6 heads: three
+// work tiles of 2 heads and 64 positions, faster on an H100 than one of 6
+// heads and 21 positions, or one head a tile). Where GP does not divide
+// the rows (llava's 7: 18 x 7 = 126 of 128) the rows past P*GP are never
+// loaded, are zeroed once in shared memory, and are never stored. O
 // leaves through shared memory by TMA, which skips rows past S and runs on
 // while the next work tile starts: each warpgroup stores its own 64 rows
-// where G divides 64, else the whole tile leaves as one box (64 of hd, G,
-// P) once every warpgroup has written its rows (named barrier 7). TMA
+// where GP divides 64, else the whole tile leaves as one box (64 of hd,
+// GP, P) once every warpgroup has written its rows (named barrier 7). TMA
 // zero-fills boxes past T; those keys are still masked to -inf, so a zero
 // key is never a key.
 //
+// A narrow last key tile: where no row of a work tile needs a key past the
+// first 64 of its last key tile (a causal tile whose positions end in the
+// first half of that key tile, or the ragged end of T), its Q K^T is one
+// m64n64k16 a k-step into the first half of the score fragment (whose
+// layout is the first columns of m64n128k16's), its softmax takes those 64
+// columns and its P V 4 k-steps; the keys left out are masked for every
+// row and weigh exactly 0. Half the diagonal tiles of jamba's (G 4, 32
+// positions), command-r's (8, 16) and dbrx's (2 heads, 64 positions) work
+// tiles are narrow. The decision is a work tile's: taken a warpgroup, or
+// with 32- and 96-key widths as well, ptxas serialised the wgmmas (C7511)
+// or, without a warning, every shape slowed. ptxas also serialises a wgmma
+// that is in flight across a branch (C7518); issuing the next work tile's
+// first Q K^T under this tile's epilogue, the branches moved out of its
+// window, ran slower than without it.
+//
 // The order of the work tiles: position-major, longest causal range first
 // (a wave's tiles have about the same work); where K and V of all heads
-// are over a quarter of the 50 MB L2 (gemma's 67 MB, whisper's 49 MB,
-// llava's 25 MB), head-major with a head's position tiles in a row (a wave
-// reads the K/V of a few heads, again and again from L2, not of all of
-// them from HBM), longest first on even heads and shortest first on odd
-// ones, so that a block's turns alternate long and short.
+// are over a quarter of the 50 MB L2 (gemma's 67 MB, whisper's and llava's
+// 49 MB, the eight-KV-head prefills' 17 MB), head-major with a head's
+// position tiles in a row (a wave reads the K/V of a few heads, again and
+// again from L2, not of all of them from HBM), longest first on even heads
+// and shortest first on odd ones, so that a block's turns alternate long
+// and short.
 //
 // Shared memory at head_dim 128: two Q buffers (a work tile's Q is
 // released at its last Q K^T, so the next one loads under this tile's last
@@ -288,6 +308,10 @@ constexpr int BAR_EPI = 1, BAR_TURN = 4, BAR_TILE = 7;
 // memory buffer by TMA
 __host__ __device__ constexpr bool fa_oreg(int hd) { return hd == 256; }
 
+// the keys of a key tile that a warpgroup's products and softmax cover
+template <int N>
+using width_t = std::integral_constant<int, N>;
+
 constexpr int SMEM_MAX = 232448;  // the 227 KB a block may have
 constexpr int SMEM_SPARE = 2048;  // the barriers and the 1024-byte alignment
 
@@ -377,7 +401,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
   // key tiles, where rows past S extend the causal range (they are
   // computed and not stored). Tk >= 1 (the maps refuse an empty K), so
   // every work tile has a key tile.
-  auto work = [&](int w, int& s0, int& g0, int& kh, int& b, int& k_begin) {
+  auto work = [&](int w, int& s0, int& g0, int& kh, int& b, int& k_begin,
+                  int& k_end) {
     int y = by_head ? w / n_pos : w % n_hb;
     const int t = by_head ? w % n_pos : w / n_hb;
     s0 = (by_head && y % 2 ? t : n_pos - 1 - t) * P;
@@ -385,7 +410,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     y /= G / GP;
     kh = y % K;
     b = y / K;
-    int k_end = Tk;
+    k_end = Tk;
     if (causal) k_end = min(Tk, s0 + P);
     k_begin = 0;
     if (window && s0 - window + 1 > 0) k_begin = ((s0 - window + 1) / BN) * BN;
@@ -433,8 +458,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     if (role >= 0) {
       int it = 0, qi = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
-        int s0, g0, kh, b, k_begin;
-        const int n_tiles = work(w, s0, g0, kh, b, k_begin);
+        int s0, g0, kh, b, k_begin, k_end;
+        const int n_tiles = work(w, s0, g0, kh, b, k_begin, k_end);
         // Q into its buffer, after the first K tile, once the buffer is
         // free: after the last Q K^T of the tile that used it
         auto load_q = [&]() {
@@ -483,8 +508,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
     auto pass = [&]() { named_arrive(BAR_TURN + (wg + 1) % NCW, 256); };
 
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
-      int s0, g0, kh, b, k_begin;
-      const int n_tiles = work(w, s0, g0, kh, b, k_begin);
+      int s0, g0, kh, b, k_begin, k_end;
+      const int n_tiles = work(w, s0, g0, kh, b, k_begin, k_end);
+      // whether the last key tile is narrow: its first 64 keys are all
+      // that any row of the tile needs (a causal tile's diagonal, or the
+      // ragged end of T). Its products and softmax then run on those 64
+      // keys; the keys left out are masked for every row, and weigh
+      // exactly 0
+      const bool narrow_last =
+          BN == 128 && k_end - (k_begin + (n_tiles - 1) * BN) <= 64;
       const int pos[2] = {s0 + r0 / GP, s0 + (r0 + 8) / GP};
       const int pos_lo = s0 + (wg * 64) / GP, pos_hi = s0 + (wg * 64 + 63) / GP;
       m[0] = m[1] = NEG_INF;
@@ -499,32 +531,39 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       auto wait_v = [&](int i) {
         mbar_wait(full_v((it + i) % WST), ((it + i) / WST) & 1);
       };
-      // S = Q K^T of key tile i into sc, issued (not waited for); Q and K
-      // are both K-major (rows along hd)
-      auto qk = [&](int i) {
+      // S = Q K^T of the first W keys of key tile i into sc, issued (not
+      // waited for); Q and K are both K-major (rows along hd). At W = 64 <
+      // BN, m64n64k16 fills sc's first half: its fragment is the first
+      // columns of m64n128k16's
+      auto qk = [&](int i, auto width) {
+        constexpr int W = decltype(width)::value;
         const uint32_t kb = sKV + ((it + i) % WST) * 2 * L::KV_TILE;
         fence_regs(sc);
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < HD / 16; ++j) {
           const uint32_t box = j / 4, koff = (j % 4) * 32;  // 16 of hd: 32 B
-          wgmma_ss<0>(
-              sc, desc_sw128(sQ(qb) + box * WBM * 128 + wg * 64 * 128 + koff,
-                             0, 1024),
-              desc_sw128(kb + box * BN * 128 + koff, 0, 1024), j > 0);
+          const uint64_t da =
+              desc_sw128(sQ(qb) + box * WBM * 128 + wg * 64 * 128 + koff, 0, 1024);
+          const uint64_t db = desc_sw128(kb + box * BN * 128 + koff, 0, 1024);
+          if constexpr (W == BN)
+            wgmma_ss<0>(sc, da, db, j > 0);
+          else
+            wgmma_ss<0>(*reinterpret_cast<float(*)[32]>(sc), da, db, j > 0);
         }
         wgmma_commit();
       };
-      // O += P V of key tile i, issued: V is N-major (a transposed B); each
-      // half of O reads two 64-wide column boxes
-      auto pv = [&](int i) {
+      // O += P V of the first W keys of key tile i, issued: V is N-major (a
+      // transposed B); each half of O reads two 64-wide column boxes
+      auto pv = [&](int i, auto width) {
+        constexpr int NK = decltype(width)::value / 16;
         const uint32_t vb = sKV + ((it + i) % WST) * 2 * L::KV_TILE + L::KV_TILE;
 #pragma unroll
         for (int h = 0; h < L::NACC; ++h) fence_regs(acc[h]);
         fence_regs(pa);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
+        for (int kk = 0; kk < NK; ++kk)
 #pragma unroll
           for (int h = 0; h < L::NACC; ++h)
             wgmma_rs<1>(acc[h], pa[kk],
@@ -539,18 +578,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
         return kt + BN > Tk || (causal && kt + BN - 1 > pos_lo) ||
                (window && kt <= pos_hi - window);
       };
-      // the masks (MASK) and the online softmax of key tile i on sc, in
-      // log2 units: sc becomes P (f32), and m, l and corr are updated;
-      // branch-free, it runs while a P V is in flight
-      auto softmax = [&](int i, auto mask) {
+      // the masks (MASK) and the online softmax of the first W keys of key
+      // tile i on sc, in log2 units: sc becomes P (f32), and m, l and corr
+      // are updated; branch-free, it runs while a P V is in flight
+      auto softmax = [&](int i, auto mask, auto width) {
         constexpr bool MASK = decltype(mask)::value;
+        constexpr int NE = decltype(width)::value / 2;
         const int kt = k_begin + i * BN;
         // without masks the scale is folded into the exponent's FMA (it is
         // positive, so the max commutes with it)
         const float sx = MASK ? 1.f : scale_log2;
         float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < BN / 2; ++e) {
+        for (int e = 0; e < NE; ++e) {
           if (MASK) {
             const int col = kt + (e / 4) * 8 + 2 * (lane % 4) + (e & 1);
             const int p = pos[(e >> 1) & 1];
@@ -570,7 +610,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
           m[h] = m_new;
         }
 #pragma unroll
-        for (int e = 0; e < BN / 2; ++e) {
+        for (int e = 0; e < NE; ++e) {
           const float p = ex2(fmaf(sc[e], sx, -m[(e >> 1) & 1]));
           sc[e] = p;
           sum[(e >> 1) & 1] += p;
@@ -584,9 +624,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       };
       // P to bf16: the accumulators of key columns [16kk, 16kk + 16) are
       // exactly the A fragment of that k-step
-      auto pack = [&]() {
+      auto pack = [&](auto width) {
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
+        for (int kk = 0; kk < decltype(width)::value / 16; ++kk) {
           pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
           pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
           pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -595,30 +635,32 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       };
       // Q is free after its last product: every consumer thread arrives
       auto release_q = [&](bool last) { mbar_arrive_if(q_empty(qb), last); };
+      using full_t = width_t<BN>;
       // key tile 0: S, wait, softmax, P to bf16 (O is still zero)
-      auto first = [&](auto mask) {
+      auto first = [&](auto mask, auto width) {
         turn();
-        qk(0);
+        qk(0, width);
         pass();
         wgmma_wait<0>();
         fence_regs(sc);
         mbar_arrive(empty_k(it % WST));
         release_q(n_tiles == 1);
-        softmax(0, mask);
-        pack();
+        softmax(0, mask, width);
+        pack(width);
       };
-      // key tile i > 0: S of tile i and P V of tile i - 1 issued together;
-      // the softmax of tile i runs while P V is on the tensor cores
-      auto step = [&](int i, auto mask) {
+      // key tile i > 0: S of tile i and P V of tile i - 1 (never the last,
+      // so of full width) issued together; the softmax of tile i runs
+      // while P V is on the tensor cores
+      auto step = [&](int i, auto mask, auto width) {
         turn();
-        qk(i);
-        pv(i - 1);
+        qk(i, width);
+        pv(i - 1, full_t{});
         pass();
         wgmma_wait<1>();
         fence_regs(sc);
         mbar_arrive(empty_k((it + i) % WST));
         release_q(i + 1 == n_tiles);
-        softmax(i, mask);
+        softmax(i, mask, width);
         wgmma_wait<0>();
 #pragma unroll
         for (int h = 0; h < L::NACC; ++h) fence_regs(acc[h]);
@@ -626,26 +668,38 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
         mbar_arrive(empty_v((it + i - 1) % WST));
 #pragma unroll
         for (int e = 0; e < HD / 2; ++e) A(e) *= corr[(e >> 1) & 1];
-        pack();
+        pack(width);
       };
-
+      // a narrow tile is the last one and always takes the masks; which
+      // tiles need masks is decided before their products are issued
+      using narrow_t = width_t<64>;
       mbar_wait(q_full(qb), (qi / QBUF) & 1);
       wait_k(0);
-      if (needs_mask(0))
-        first(std::true_type{});
-      else
-        first(std::false_type{});
+      if (narrow_last && n_tiles == 1) {
+        if constexpr (BN == 128) first(std::true_type{}, narrow_t{});
+      } else if (needs_mask(0)) {
+        first(std::true_type{}, full_t{});
+      } else {
+        first(std::false_type{}, full_t{});
+      }
       for (int i = 1; i < n_tiles; ++i) {
         wait_k(i);
         wait_v(i - 1);
-        if (needs_mask(i))
-          step(i, std::true_type{});
-        else
-          step(i, std::false_type{});
+        if (narrow_last && i + 1 == n_tiles) {
+          if constexpr (BN == 128) step(i, std::true_type{}, narrow_t{});
+        } else if (needs_mask(i)) {
+          step(i, std::true_type{}, full_t{});
+        } else {
+          step(i, std::false_type{}, full_t{});
+        }
       }
       wait_v(n_tiles - 1);
       turn();
-      pv(n_tiles - 1);
+      if (narrow_last) {
+        if constexpr (BN == 128) pv(n_tiles - 1, narrow_t{});
+      } else {
+        pv(n_tiles - 1, full_t{});
+      }
       pass();
       wgmma_wait<0>();
 #pragma unroll
@@ -774,9 +828,25 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  // GQA packing: all G query heads of a KV head in one work tile, floor(rows
-  // / G) positions of them (one head a tile where G > rows)
-  const int GP = G <= L::WBM ? G : 1;
+  // head-major where K and V (of all heads) are over a quarter of the 50 MB
+  // L2 (Q and O stream through it too)
+  const long kv_bytes = 4ll * B * Tk * K * HD;
+  const int by_head = kv_bytes > 12500000ll;
+  // GQA packing: GP of the G query heads of a KV head in one work tile,
+  // floor(rows / GP) positions of them: all G where G divides 64, or where
+  // K and V are over half the L2 (llava's 49 MB: a K/V tile then serves
+  // every head at one read); else the largest divisor of G that divides 64
+  // (dbrx's 6: work tiles of 2 heads and 64 positions, whose last key
+  // tile is narrow for every other tile), so that a warpgroup's rows are
+  // whole positions; one head a tile where G > rows
+  int GP = G;
+  if (G > L::WBM) {
+    GP = 1;
+  } else if (64 % G != 0 && kv_bytes <= 25000000ll) {
+    GP = 1;
+    for (int d = 2; d <= G; ++d)
+      if (G % d == 0 && 64 % d == 0) GP = d;
+  }
   const int P = L::WBM / GP;
   const long n_work = (long)((S + P - 1) / P) * B * K * (G / GP);
   if (n_work > 0x7fffffffL) return cudaErrorInvalidValue;
@@ -804,9 +874,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       !hopper_host::make_map(&om, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, o, qd,
                              qs, ob))
     return cudaErrorInvalidValue;
-  // head-major where K and V (of all heads) are over a quarter of the 50 MB
-  // L2 (Q and O stream through it too)
-  const int by_head = 4ll * B * Tk * K * HD > 12500000ll;
   flash_fwd_bf16<HD><<<(int)std::min<long>(n_work, n_sm), L::WNT, L::TOTAL,
                        stream>>>(
       qm, km, vm, om, static_cast<__nv_bfloat16*>(o), B, S, Tk, K, G, GP,

@@ -21,7 +21,7 @@ MAX_G = 16          # query heads per KV head
 TILE = 64           # keys per tile inside the kernel (the mask's granularity)
 MAX_SPLIT = 8       # blocks of a cluster: the portable cluster size
 MAX_T = 131072      # cache slots (the kernel keeps the mask's bits in shared memory)
-BLOCKS_PER_SM = 2   # the kernel's shared memory lets two blocks share an SM
+BLOCKS_PER_SM = 1   # blocks an SM the planner aims at
 
 launches = 0  # wrapper calls that launched the kernel (plain runs excluded)
 
@@ -44,7 +44,9 @@ def _n_sm(index: int) -> int:
 def n_splits(B: int, K: int, T: int, n_sm: int = 132) -> int:
     """Blocks (one cluster) per (batch, KV head): enough for about
     ``BLOCKS_PER_SM`` blocks on each SM, at most ``MAX_SPLIT`` and at most
-    one per 64-key tile. Where B*K alone fills the card, one."""
+    one per 64-key tile. Where B*K alone fills the card, one. Two blocks an
+    SM (64 clusters of 4 at B*K = 64) made more clusters than the card
+    placed at once, and a tail wave."""
     tiles = -(-T // TILE)
     return max(1, min(MAX_SPLIT, tiles, BLOCKS_PER_SM * n_sm // (B * K)))
 

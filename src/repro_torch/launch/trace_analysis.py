@@ -57,8 +57,8 @@ import weakref
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map_only
-from torch.utils.flop_counter import (conv_flop_count, flop_registry,
-                                     shape_wrapper)
+from torch.utils.flop_counter import (bmm_flop, conv_flop_count,
+                                     flop_registry, shape_wrapper)
 
 # functional collective (op name) -> the reference's collective kind
 _COLLECTIVES = {
@@ -97,8 +97,16 @@ def conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride,
     return flops
 
 
+def bmm_any_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """torch's ``bmm`` formula for every overload of ``bmm``: torch's own
+    takes no third argument, which ``bmm.dtype`` (``out_dtype``: the
+    card's bf16 x bf16 -> f32 attention scores) passes."""
+    return bmm_flop(a_shape, b_shape)
+
+
 # FlopCounterMode(custom_mapping=CUSTOM_FLOPS) counts as the tracer does
-CUSTOM_FLOPS = {torch.ops.aten.convolution_backward: conv_backward_flop}
+CUSTOM_FLOPS = {torch.ops.aten.convolution_backward: conv_backward_flop,
+                torch.ops.aten.bmm: bmm_any_flop}
 FLOP_FORMULAS = {**flop_registry,
                  **{op: shape_wrapper(f) for op, f in CUSTOM_FLOPS.items()}}
 

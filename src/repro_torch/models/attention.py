@@ -81,15 +81,36 @@ def _grouped(a, q, k, v):
 
 
 # ------------------------------------------------------------------ core SDPA
+def _scores(q, k):
+    """f32 scores (B,K,G,S,T) of q (B,S,K,G,hd) against k (B,T,K,hd), as
+    the reference's product with ``preferred_element_type=f32``. On the
+    card a low-precision q and k go to one bf16 x bf16 -> f32 ``bmm`` over
+    the (batch, KV head) pairs (``out_dtype``): k is read in place where
+    its storage is (B, K, T, hd), as ``encode_cross_kv`` lays out the
+    cross K, and copied once in its own dtype otherwise. Elsewhere (the
+    CPU build has no ``out_dtype`` kernel, and it has no derivative) both
+    are widened to f32, which holds their products exactly."""
+    if (q.device.type == "cuda" and q.dtype != torch.float32
+            and k.dtype == q.dtype and not sharding.is_dtensor(q)
+            and not (torch.is_grad_enabled()
+                     and (q.requires_grad or k.requires_grad))):
+        B, S, K, G, hd = q.shape
+        T = k.shape[1]
+        qm = q.permute(0, 2, 3, 1, 4).reshape(B * K, G * S, hd)
+        km = k.permute(0, 2, 3, 1).reshape(B * K, hd, T)
+        return torch.bmm(qm, km, out_dtype=torch.float32).view(B, K, G, S, T)
+    return torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+
+
 def _direct_attention(q, k, v, bias, stats=False):
     """q: (B,S,K,G,hd); k,v: (B,T,K,hd); bias: broadcastable (B,1,1,S,T).
 
-    f32 scores (the bf16 products are exact in f32), f32 softmax, then p
-    cast to ``v.dtype`` before the PV product, as the reference does.
-    ``stats``: also the softmax's row max and sum, each (B,K,G,S), for a
-    merge with other keys' (``sharding.on_shards``)."""
+    f32 scores (``_scores``), f32 softmax, then p cast to ``v.dtype``
+    before the PV product, as the reference does. ``stats``: also the
+    softmax's row max and sum, each (B,K,G,S), for a merge with other
+    keys' (``sharding.on_shards``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    s = _scores(q, k)
     s = s * scale + bias
     if not stats:
         p = torch.softmax(s, dim=-1)

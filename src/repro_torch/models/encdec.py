@@ -103,9 +103,17 @@ def _stacked_kv(cfg, batch, T, dtype, device):
 
 
 def encode_cross_kv(params, cfg, enc_out):
-    """Each decoder layer's cross K/V: (k, v), each (L, B, T_enc, K, hd)."""
+    """Each decoder layer's cross K/V: (k, v), each (L, B, T_enc, K, hd),
+    a view of an (L, B, K, T_enc, hd) tensor (the stack's one copy writes
+    it so): a decode step's cross-attention then reads a head's keys and
+    values in place (``attention._scores``), not a widened or transposed
+    copy of the whole cache a layer and step. A sharded ``enc_out``
+    (DTensor) keeps the plain stack."""
     kv = [attention.encode_kv(cfg, sharding.gather_fsdp(lp["xattn"]), enc_out)
           for lp in params["decoder"]]
+    if not sharding.is_dtensor(enc_out):
+        return tuple(torch.stack([t[i].transpose(1, 2) for t in kv])
+                     .transpose(2, 3) for i in (0, 1))
     return (torch.stack([k for k, _ in kv]),
             torch.stack([v for _, v in kv]))
 

@@ -58,25 +58,39 @@ def test_flash_kernel_on_card(cuda, S, K, G, hd, dtype, causal, window):
 @pytest.mark.parametrize("B,S,T,K,G,hd", [
     (8, 512, 512, 2, 8, 128),   # qwen2.5-3b serving: 8 heads packed a block
     (2, 300, 300, 1, 16, 64),   # 16 heads packed: 8 positions a block
-    (2, 200, 200, 2, 3, 128),   # G does not divide 128: 42 x 3 rows a block
-    (1, 77, 333, 2, 6, 64),     # S != T, G does not divide 128: 21 x 6 rows
+    (2, 200, 200, 2, 3, 128),   # G 3, K/V in L2: one head a tile
+    (1, 77, 333, 2, 6, 64),     # S != T, G 6 in L2: 2 heads x 64 positions
     (4, 8, 8, 2, 8, 128),       # serve_autoscale's 8-token prefill: one
                                 # work tile of 16 positions, 8 of them past S
     (4, 8, 64, 2, 8, 128),      # 8 queries over a full 64-key tile
-    (1, 77, 77, 2, 7, 128),     # llava's G 7: 18 positions x 7 heads a tile
-    (1, 3008, 3008, 1, 7, 128),  # llava's prefill length, ragged against 18
-    (1, 77, 333, 2, 5, 64),     # G 5, S != T: 25 x 5 = 125 rows
-    (2, 65, 129, 1, 6, 128),    # G 6, S < T: 21 x 6 = 126 rows
-    (1, 100, 100, 1, 7, 256),   # G 7 at head_dim 256
-    (1, 40, 40, 1, 96, 64),     # G 96: one position of 96 heads a tile
+    (1, 77, 77, 2, 7, 128),     # G 7, K/V in L2: one head a tile
+    (1, 3008, 3008, 1, 7, 128),  # llava's prefill length at one KV head:
+                                 # one head a tile, a ragged last tile
+    (1, 77, 333, 2, 5, 64),     # G 5, S != T, K/V in L2: one head a tile
+    (2, 65, 129, 1, 6, 128),    # G 6, S < T: 2 heads x 64 positions
+    (1, 100, 100, 1, 7, 256),   # G 7 at head_dim 256, K/V in L2
+    (1, 40, 40, 1, 96, 64),     # G 96: 4 positions of 32 heads a tile
+    (2, 1600, 1600, 8, 7, 128),  # 13.1 MB of K/V: head-major, one head a
+                                 # tile
+    # K and V over half the L2 (25 MB): G packed whole, so where G does not
+    # divide 128 the dead rows past P x G, and where it does not divide 64
+    # the whole tile's O leaves as one box behind named barrier 7
+    (4, 3008, 3008, 8, 7, 128),  # llava-next-34b's prefill (49 MB): 18 x 7
+    (2, 1600, 1600, 16, 7, 128),  # 26.2 MB, just past the threshold
+    (1, 200, 12800, 8, 3, 128),  # G 3: 42 x 3 rows, S != T (52 MB)
+    (1, 77, 12800, 8, 6, 64),   # G 6 at head_dim 64: 21 x 6 rows (26 MB)
+    (1, 77, 25600, 8, 5, 64),   # G 5: 25 x 5 = 125 rows (52 MB)
+    (1, 100, 6400, 8, 7, 256),  # G 7 at head_dim 256 (52 MB)
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
 def test_flash_kernel_gqa_packing_on_card(cuda, B, S, T, K, G, hd, causal,
                                           window):
     """The bf16 kernel with the query heads of a KV head packed into one
-    block's rows: floor(128 / G) positions of G heads, for any G. Where G
-    does not divide 128 the dead rows past them are never stored, and
-    where it does not divide 64 O leaves as one box of the whole tile."""
+    block's rows: floor(128 / G) positions of G heads where G divides 64 or
+    K and V are over half the L2, else the largest divisor of G that
+    divides 64 (one head a tile where that is 1). Where G does not divide
+    128 the dead rows past them are never stored, and where it does not
+    divide 64 O leaves as one box of the whole tile."""
     gen = torch.Generator(device=cuda).manual_seed(S + G)
     q = torch.randn((B, S, K, G, hd), generator=gen, device=cuda).bfloat16()
     k = torch.randn((B, T, K, hd), generator=gen, device=cuda).bfloat16()
@@ -88,6 +102,28 @@ def test_flash_kernel_gqa_packing_on_card(cuda, B, S, T, K, G, hd, causal,
     want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert torch.isfinite(out).all()
     assert rel_err(out, want) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [4, 6, 8])
+@pytest.mark.parametrize("B,S", [(8, 512), (2, 437), (3, 77)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_eight_kv_heads_on_card(cuda, G, B, S, dtype):
+    """Causal prefill at eight KV heads, as jamba-v0.1-52b (G 4), dbrx-132b
+    (6) and command-r-35b (8) serve it, at the served length and ragged
+    ones."""
+    gen = torch.Generator(device=cuda).manual_seed(S + G)
+    q = torch.randn((B, S, 8, G, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, S, 8, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, 8, 128), generator=gen, device=cuda).to(dtype)
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tref.flash_attention_ref(q, k, v, causal=True)
+    assert torch.isfinite(out).all()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
 
 
 @pytest.mark.gpu
@@ -213,6 +249,48 @@ def test_decode_kernel_shapes_on_card(cuda, hd, G, dtype, pos):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("G", [4, 6, 7, 8])
+@pytest.mark.parametrize("B,T", [(8, 1024), (4, 3072)])
+@pytest.mark.parametrize("filled", ["partly", "wrapped"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_eight_kv_heads_on_card(cuda, G, B, T, filled, dtype):
+    """Eight KV heads, as jamba-v0.1-52b (G 4), dbrx-132b (6), llava-next-
+    34b (7, a 3072-slot ring) and command-r-35b (8) serve them: a ring
+    filled to a served step's length (a ragged last tile) and a wrapped
+    one."""
+    gen = torch.Generator(device=cuda).manual_seed(G * T)
+    q = torch.randn((B, 1, 8, G, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, T, 8, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, T, 8, 128), generator=gen, device=cuda).to(dtype)
+    pos = {"partly": T - 71 if T == 3072 else 600, "wrapped": T + 5}[filled]
+    valid = torch.arange(T, device=cuda) <= pos
+    before = tda.launches
+    out = tda.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tda.launches == before + 1
+    want = tref.decode_attention_ref(q, k, v, valid)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [4, 6, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_all_false_mask_eight_kv_heads_on_card(cuda, G, dtype):
+    """An all-false mask at eight KV heads: the mean of V over every slot,
+    each block's tiles and each warp's keys included."""
+    gen = torch.Generator(device=cuda).manual_seed(G)
+    q = torch.randn((8, 1, 8, G, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((8, 1000, 8, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((8, 1000, 8, 128), generator=gen, device=cuda).to(dtype)
+    valid = torch.zeros(1000, dtype=torch.bool, device=cuda)
+    out = tda.decode_attention(q, k, v, valid)
+    want = v.float().mean(dim=1)[:, None, :, None, :].expand(q.shape)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert rel_err(out, want) <= tol
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hd,G", [(128, 8), (256, 1), (64, 16)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_all_false_mask_on_card(cuda, hd, G, dtype):
@@ -248,6 +326,41 @@ def test_decode_kernel_cuda_graph_and_one_launch(cuda):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tda.decode_attention(q, k, v, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tda.decode_attention(q, k, v, valid)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,G,pos", [(8, 1024, 6, 600),    # dbrx-132b
+                                       (4, 3072, 7, 3007)])  # llava-next-34b
+def test_decode_kernel_cuda_graph_and_one_launch_eight_kv_heads(cuda, B, T, G,
+                                                                pos):
+    """At eight KV heads too: one kernel a call, and a CUDA graph of the
+    call replays the eager output bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda).manual_seed(T + G)
+    q = torch.randn((B, 1, 8, G, 128), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((B, T, 8, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((B, T, 8, 128), generator=gen, device=cuda).bfloat16()
+    valid = torch.arange(T, device=cuda) <= pos
+    eager = tda.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            tda.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -342,6 +455,61 @@ def test_engine_on_card_serves_stub_frontends(cuda, arch):
     want, _ = models.prefill(eng.params, cfg, batch, 64, CallOpts())
     assert torch.isfinite(got).all()
     assert rel_err(got, want) <= 3e-2
+
+
+@pytest.mark.gpu
+def test_direct_attention_scores_on_card(cuda):
+    """On the card the plain attention's scores are one bf16 x bf16 -> f32
+    bmm, equal to the widened f32 product up to the order of the f32 sums,
+    and a K stored (B, K, T, hd) is read in place: no copy of its size."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 3, 4, 2, 64), generator=gen, device=cuda).bfloat16()
+    kt = torch.randn((2, 4, 4096, 64), generator=gen, device=cuda).bfloat16()
+    k = kt.transpose(1, 2)                       # (B, T, K, hd), in place
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        got = attention._scores(q, k)
+    want = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 2, 3, 4096)
+    assert rel_err(got, want) <= 1e-5
+    copies = [e.input_shapes for e in prof.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous")]
+    assert all(np.prod(s[0]) < k.numel() for s in copies if s and s[0]), copies
+
+
+@pytest.mark.gpu
+def test_cross_kv_layout_on_card(cuda):
+    """whisper's cross K and V on the card: the reference's (L, B, T, K, hd)
+    shape over (L, B, K, T, hd) storage; a decode step over them gives the
+    logits it gives over contiguous copies."""
+    from repro_torch import models
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import encdec
+    cfg = reduced(ARCHS["whisper-medium"])
+    params = models.init_params(cfg, seed=3, device="cuda")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=cuda).bfloat16()
+    tokens = torch.randint(1, cfg.vocab_size, (2, 5), generator=gen,
+                           device=cuda)
+    _, cache = models.prefill(params, cfg, {"tokens": tokens,
+                                            "frame_embeds": frames}, 16)
+    ck, cv = cache["cross"]
+    L, B, T, K, hd = ck.shape
+    assert (L, B, T) == (cfg.num_layers, 2, cfg.encoder_seq)
+    for t in (ck, cv):
+        assert t.transpose(2, 3).is_contiguous()
+    step = tokens[:, -1:]
+    flat = {"self": {n: t.clone() for n, t in cache["self"].items()},
+            "cross": tuple(t.contiguous() for t in (ck, cv))}
+    got, _ = models.decode_step(params, cfg, step, 5, cache)
+    want, _ = models.decode_step(params, cfg, step, 5, flat)
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= 1e-2
+    assert torch.equal(encdec.encode_cross_kv(
+        params, cfg, encdec.encode(params, cfg, frames, models.CallOpts()))[0],
+        ck)
 
 
 def ssd_inputs(gen, nc, B, Q, nh, hd, N, G, dtype, h0_scale):

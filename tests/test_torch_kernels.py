@@ -129,11 +129,15 @@ def test_decode_all_false_mask_gives_mean_of_v():
 @pytest.mark.parametrize("B,K,T,pos", [(8, 2, 1024, 600), (8, 16, 1024, 600),
                                        (1, 1, 64, 0), (1, 2, 100, 5000),
                                        (64, 16, 4096, 4000), (8, 2, 33, -1),
-                                       (3, 1, 1000, 130)])
+                                       (3, 1, 1000, 130),
+                                       # eight KV heads: jamba, dbrx and
+                                       # command-r, llava's 3072-slot ring
+                                       (8, 8, 1024, 600), (8, 8, 1024, 5000),
+                                       (4, 8, 3072, 3007), (4, 8, 3072, 5000)])
 def test_decode_launch_plan_covers_cache(B, K, T, pos):
     """The launch planner: a cluster of at most 8 blocks per (batch, KV
-    head), no more blocks than tiles, about two blocks an SM where B*K
-    leaves room. The kernel selects the 64-key tiles with a valid slot
+    head), no more blocks than tiles, about one block an SM where B*K
+    leaves room (two made more clusters than the card placed at once). The kernel selects the 64-key tiles with a valid slot
     (all of them for an all-false mask) and deals them out in order, tiles
     [r*n/ns, (r+1)*n/ns) to block r: each selected tile exactly once, no
     block empty where there are as many tiles as blocks."""
@@ -141,6 +145,8 @@ def test_decode_launch_plan_covers_cache(B, K, T, pos):
     tiles = -(-T // tda.TILE)
     assert 1 <= ns <= min(tda.MAX_SPLIT, tiles)
     assert ns * B * K <= max(B * K, tda.BLOCKS_PER_SM * 132)
+    # as many blocks as fit one a SM, short of the cluster and tile caps
+    assert ns == min(tda.MAX_SPLIT, tiles) or (ns + 1) * B * K > 132
     valid = np.arange(T) <= pos
     n_sel = sum(valid[t * 64:(t + 1) * 64].any() for t in range(tiles)) or tiles
     ranges = [(r * n_sel // ns, (r + 1) * n_sel // ns) for r in range(ns)]

@@ -172,6 +172,21 @@ def test_depthwise_conv_counts_per_group():
     assert tracer == custom == torch_own == 3 * 2 * B * L * C * C * W
 
 
+def test_bmm_out_dtype_counted_as_bmm():
+    """``bmm.dtype`` (``out_dtype``: the card's bf16 x bf16 -> f32
+    attention scores) counts as ``bmm`` does, in the tracer and in
+    FlopCounterMode with CUSTOM_FLOPS (torch's own bmm formula takes no
+    third argument)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    a = torch.ones((2, 3, 4), device="meta", dtype=torch.bfloat16)
+    b = torch.ones((2, 4, 5), device="meta", dtype=torch.bfloat16)
+    with ta.tracing() as tracer:
+        torch.bmm(a, b, out_dtype=torch.float32)
+    with FlopCounterMode(display=False, custom_mapping=ta.CUSTOM_FLOPS) as c:
+        torch.bmm(a, b, out_dtype=torch.float32)
+    assert tracer.analysis.flops == c.get_total_flops() == 2 * 2 * 3 * 4 * 5
+
+
 def _jaxpr_conv_flops(jaxpr, trips=1) -> int:
     """The reference's convolution FLOPs, read from its jaxpr: 2 * out *
     (the kernel's elements over its output features), each scan body

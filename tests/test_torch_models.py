@@ -478,6 +478,33 @@ def test_encdec_logits_match_jax(dtype, use_kernels):
         assert rel_err(got, np.asarray(want, np.float32)) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_cross_kv_layout(dtype):
+    """The cross K and V keep the reference's (L, B, T, K, hd) shape and
+    values over (L, B, K, T, hd) storage, so that a decode step reads a
+    head's keys in place; a step over them gives the logits it gives over
+    contiguous copies."""
+    jcfg, jp, tcfg, tp = bridged("whisper-medium", dtype)
+    rng = np.random.default_rng(15)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 9)).astype(np.int32)
+    jf, tf = both(rng.standard_normal((2, jcfg.encoder_seq, jcfg.d_model)),
+                  "bfloat16")
+    _, jc = jmodels.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :8]),
+                                       "frame_embeds": jf}, 16)
+    _, tc = tmodels.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks[:, :8]),
+                                       "frame_embeds": tf}, 16)
+    for got, want in zip(tc["cross"], jc["cross"]):
+        assert tuple(got.shape) == want.shape
+        assert got.transpose(2, 3).is_contiguous()
+        assert rel_err(got, np.asarray(want, np.float32)) < TOL[dtype]
+    step = torch.from_numpy(toks[:, 8:])
+    flat = {"self": {n: t.clone() for n, t in tc["self"].items()},
+            "cross": tuple(t.contiguous() for t in tc["cross"])}
+    got, _ = tmodels.decode_step(tp, tcfg, step, 8, tc)
+    want, _ = tmodels.decode_step(tp, tcfg, step, 8, flat)
+    assert rel_err(got, want.float().numpy()) < TOL[dtype]
+
+
 def test_encdec_decode_clamps_learned_positions():
     """Decode past the decoder's learned position table reuses its last
     row, as the reference's ``jnp.minimum`` does."""

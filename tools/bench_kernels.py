@@ -2,7 +2,11 @@
 
 ``--kernel flash_attention``: at the served prefill shapes that
 ``chip_smoke.py`` times (qwen2.5-3b, gemma-7b, whisper-medium's encoder,
-llava-next-34b, jamba-v0.1-52b, dbrx-132b). ``--kernel ssd_chunk_scan``:
+llava-next-34b, jamba-v0.1-52b, dbrx-132b, command-r-35b). ``--kernel
+decode_attention``: at its served decode shapes (``DECODE_SHAPES``: qwen,
+deepseek, gemma, jamba, dbrx, command-r over 601 of 1024 slots, llava over
+3008 of 3072), the parent's blocks a KV head taken from its own
+``decode_attention.py`` beside its csrc. ``--kernel ssd_chunk_scan``:
 at mamba2-2.7b's (head_dim 64, state 128) layer and jamba-v0.1-52b's
 (64, 16) one, B 8, L 512 in two chunks of 256, h0 nonzero. ``--kernel
 gmm``: the down projection at the MoE cells' served prefill
@@ -17,14 +21,14 @@ version (2e-2 in bf16, 1e-4 for f32 x) and timed in the order parent,
 this, this, parent: torch.profiler device time (the mean of 10 calls;
 every kernel of a call, a pre-pass included) and CUDA events (20 calls).
 Beside them, the same run's library call where one exists
-(``scaled_dot_product_attention`` for flash, ``torch.bmm`` for gmm, two
-for the gated pair, in f32 on f32 copies of the weights where x is f32:
-yardsticks the port never calls; none computes the SSD scan) and the
+(``scaled_dot_product_attention`` for flash and decode, ``torch.bmm`` for
+gmm, two for the gated pair, in f32 on f32 copies of the weights where x is
+f32: yardsticks the port never calls; none computes the SSD scan) and the
 bound. Shapes, inputs, bounds and timers are ``chip_smoke.py``'s. Needs
 one CUDA card; run from the root of the checkout:
 
     mkdir -p build/parent
-    git archive HEAD~1 src/repro_torch/kernels/csrc | tar -x -C build/parent
+    git archive HEAD~1 src/repro_torch/kernels | tar -x -C build/parent
     python3 tools/bench_kernels.py --kernel flash_attention \\
         --parent build/parent/src/repro_torch/kernels/csrc [--out FILE]
 """
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -90,6 +95,52 @@ def flash_cases(gen, lib):
                lambda: F.scaled_dot_product_attention(
                    qh, kh, vh, is_causal=causal, enable_gqa=True),
                smoke.flash_work(B, S, S, K, G, hd, causal),
+               smoke.TOL["bfloat16"])
+
+
+def decode_cases(gen, lib, parent_wrapper=None):
+    """The same as ``flash_cases`` at each decode shape; the parent runs at
+    the blocks a KV head of its own planner, from ``parent_wrapper`` (its
+    ``decode_attention.py``) where that exists, else of this one's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    parent = entry(lib, "decode_attention_fwd", da._kernel())
+    parent_splits = da.n_splits
+    if parent_wrapper is not None and parent_wrapper.exists():
+        spec = importlib.util.spec_from_file_location("parent_decode",
+                                                      parent_wrapper)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        parent_splits = mod.n_splits
+    for label, (B, K, G, hd, T, n_valid) in smoke.DECODE_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                   for shape in ((B, 1, K, G, hd), (B, T, K, hd),
+                                 (B, T, K, hd)))
+        valid = torch.arange(T, device="cuda") < n_valid
+        qh = q.reshape(B, K * G, 1, hd)
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+        def run_parent(ns=parent_splits(B, K, T)):
+            o = torch.empty_like(q)
+            rc = parent(1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        valid.data_ptr(), o.data_ptr(), B, T, K, G, hd, ns,
+                        1.0 / hd ** 0.5,
+                        torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"parent kernel: CUDA error {rc}")
+            return o
+
+        yield (f"{label} q {(B, 1, K, G, hd)} over {n_valid} of {T} slots",
+               {"q": [B, 1, K, G, hd], "T": T, "valid": n_valid},
+               {"parent": run_parent,
+                "this": lambda: da.decode_attention(q, k, v, valid)},
+               ref.decode_attention_ref(q, k, v, valid),
+               lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=valid[None, None, None, :],
+                   enable_gqa=True),
+               smoke.decode_work(B, K, G, hd, T, n_valid),
                smoke.TOL["bfloat16"])
 
 
@@ -227,6 +278,7 @@ def gmm_cases(gen, lib, gated=False):
 # kernel -> (library, the cases)
 BENCHES = {
     "flash_attention": ("flash_attention", flash_cases),
+    "decode_attention": ("decode_attention", decode_cases),
     "ssd_chunk_scan": ("ssd_scan", ssd_cases),
     "gmm": ("moe_gmm", gmm_cases),
     "gmm_gated": ("moe_gmm",
@@ -277,9 +329,11 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"[bench_kernels] {name} build: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    extra = ({"parent_wrapper": args.parent.parent / "decode_attention.py"}
+             if args.kernel == "decode_attention" else {})
     results = []
     for label, shape, runs, want, lib_call, (flops, nbytes), tol in cases(
-            gen, build.load(lib, args.parent)):
+            gen, build.load(lib, args.parent), **extra):
         row = {"shape": label, **shape}
         for name, fn in runs.items():
             err = rel_err(fn(), want)
