@@ -31,6 +31,15 @@ Sixteen phases; any failure raises and the exit code is non-zero.
    weights with plain attention (max rel err <= 3e-2). Then torch.profiler
    sums the device time of one prefill and one decode step, against the
    steps' median wall time (the device's idle share).
+   The engine's decode dispatches replay its captured step
+   (``serving/graphs.py``): the phase holds that every dispatch but each
+   batch size's first (the warm-up, which captures) was a replay; holds
+   one replay against one eager ``decode_step`` on one cache (the
+   logits' max abs difference, 0 expected, at <= 3e-2), compares
+   every op's output of an instrumented capture with the eager step's and
+   names the first that differs; and prints the median wall of 25
+   replays beside the eager step's wall and device busy, with the idle
+   share of each, and a replay's own device busy.
 4. Serving mamba2-2.7b: full width and depth, the same pod shape at quota
    1.0, 16 requests in two batches of 8: prompts of 64-237 tokens (one
    chunk of Q = 237, not a multiple of 16), then of 64-512 with one of 512
@@ -98,8 +107,8 @@ Sixteen phases; any failure raises and the exit code is non-zero.
    expert's second are dropped) against the plain path in bf16 (<= 3e-2),
    and prints the whole step's logits. Each measures its steps'
    footprints (``measure_footprint``), checks that ``LibHas`` refuses a
-   budget one byte below each, and profiles a prefill and a decode step
-   as phase 3.
+   budget one byte below each, and checks and profiles the captured
+   decode step and profiles a prefill and a decode step as phase 3.
 
 The kernels phase also holds ``flash_attention`` at those models'
 shapes (gemma's head_dim 256, whisper's non-causal encoder over 1500
@@ -124,6 +133,8 @@ launches), and prints both at deepseek's decode shape and jamba's SSD
 layer beside their plain versions and bounds.
 The kernels phase also holds ``gmm``, ``gmm_gated`` and ``expert_ffn``
 against their plain versions at the prefill, decode and ragged shapes
+(and times the pair at deepseek's, jamba's and dbrx's decode step,
+``gmm_tc<16>``, by CUDA events, device time and a CUDA graph of 20 calls)
 (``gmm_gated`` also on the dispatch's (G, E, C, d) layout, an odd K and N,
 an unaligned x, and an f32 x whose tiles are partly bf16-exact), for three
 pairs of types (x and w bf16; x f32 and w bf16, the serving path: the
@@ -143,7 +154,8 @@ serialised) lines.
    and 1.0, prefill of 512 tokens and one decode step: 48 points), here
    with one warmup and the min of 2 (the committed reference took 2 and
    5), each dispatch through ``PodEngine`` behind ``LibHas`` with the
-   kernels on. Checks that every step launched its kernels (the counts
+   kernels on (a decode dispatch replays the engine's captured step; the
+   capture falls in the warm-up). Checks that every step launched its kernels (the counts
    reset just before and read just after), holds the report to
    ``check_report`` against the committed
    ``src/repro_torch/profiling/ref_profile_h100.json`` (factor 10), and
@@ -301,6 +313,7 @@ PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BW = 3.35e12    # H100 SXM HBM3 bytes/s
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SERVE_TOL = 3e-2     # prefill logits, kernels vs plain attention, bf16
+REPLAYS = 25         # replays of a captured decode step timed a family
 K, G, HD = 2, 8, 128  # qwen2.5-3b attention: 2 KV heads x 8 query heads
 NH, SG, SHD, SN = 80, 8, 64, 128  # mamba2-2.7b SSD: heads, groups, head_dim, state
 JAMBA_SSD = (128, 1, 64, 16)      # jamba-v0.1-52b's SSD layer, the same order
@@ -758,6 +771,40 @@ def phase_kernels(seed):
                 fn()
         return cuda_ms(graph.replay, replays) / n
 
+    def decode_pair(arch, xe, wg, wu, wd):
+        """The gmm pair at a decode step's dispatch (``gmm_tc<16>``: the
+        experts' rows are the groups' one token each) timed by CUDA events,
+        torch.profiler's device time and a CUDA graph of 20 calls, beside
+        the plain version, the bound (the tokens, every expert's weights
+        and the output each moved once) and, for the down projection,
+        ``torch.bmm`` in f32 on an f32 copy of the weights (no PyTorch call
+        computes the gated pair)."""
+        h = mg.gmm_gated(xe, wg, wu)
+        E, d, f = wg.shape
+        rows = h.shape[1]
+        wd32 = wd.float()
+        for label, kern, plain, lib, (flops, nbytes) in (
+                (f"gated xe {tuple(xe.shape)} @ 2x({E},{d},{f})",
+                 lambda: mg.gmm_gated(xe, wg, wu),
+                 lambda: ref.gmm_gated_ref(xe, wg, wu), None,
+                 gmm_work(E, rows, d, f, 2, 4)),
+                (f"down ({E},{rows},{f}) @ ({E},{f},{d})",
+                 lambda: mg.gmm(h, wd), lambda: ref.gmm_ref(h, wd),
+                 lambda: torch.bmm(h, wd32), gmm_work(E, rows, f, d, 1, 4))):
+            bound = max(flops / PEAK_BF16, nbytes / PEAK_BW) * 1e3
+            by = ("operations" if flops / PEAK_BF16 >= nbytes / PEAK_BW
+                  else "bytes")
+            lib_s = ("no library call" if lib is None else
+                     f"torch.bmm f32 {cuda_ms(lib, 10):.4f} ms (device "
+                     f"{fmt_ms(device_ms(lib, 5))})")
+            print(f"[kernels] gmm decode {arch} {label}, f32 x bf16 w: CUDA "
+                  f"events {cuda_ms(kern, 20):.4f} ms, torch.profiler device "
+                  f"time {fmt_ms(device_ms(kern, 10))}, CUDA graph of 20 "
+                  f"calls {graph_ms(kern):.4f} ms a call; plain "
+                  f"{cuda_ms(plain, 3):.4f} ms; {lib_s}; bound {bound:.4f} ms "
+                  f"({by}; {nbytes / 1e6:.1f} MB)")
+        del wd32
+
     # the device times, and deepseek's shape (16 KV heads of one query head)
     q16 = randn(B, S, 16, 1, HD, dtype=bf)
     k16, v16 = (randn(B, S, 16, HD, dtype=bf) for _ in range(2))
@@ -982,6 +1029,7 @@ def phase_kernels(seed):
         print(f"[kernels] gmm {label}: kernel {cuda_ms(kern, 20):.4f} ms, "
               f"{lib_s}, bound {bound:.4f} ms "
               f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    decode_pair("deepseek-moe-16b", xe8, wg, wu, wd)
     del xd, wd, xe, wg, wu, x3, xb, x8, xe8, wg32
     # the gmm pair at the prefill expert shapes of jamba-v0.1-52b (16
     # experts, top-2, 4096 -> 14336) and dbrx-132b (16, top-4, 6144 ->
@@ -1009,6 +1057,7 @@ def phase_kernels(seed):
              f"2x({E},{d},{f})", hd_, ref.gmm_gated_ref(xd, wg, wu), "float32")
         hold("gmm", f"{arch} decode down {tuple(hd_.shape)} @ ({E},{f},{d})",
              mg.gmm(hd_, wd), ref.gmm_ref(hd_, wd), "float32")
+        decode_pair(arch, xd, wg, wu, wd)
         del xd, hd_
         x3 = xe.transpose(0, 1).reshape(E, rows, d).contiguous()
         wg32, wu32, wd32 = wg.float(), wu.float(), wd.float()
@@ -1095,6 +1144,7 @@ def serving_pod(cfg, fn_id, seed, quota, batch=8, max_seq=1024):
             if key == "prefill":
                 record["prefill_len"].append(args[1]["tokens"].shape[1])
             return logits, cache
+        run.__wrapped__ = fn
         return run
 
     engine._prefill = timed(engine._prefill, "prefill")
@@ -1246,7 +1296,10 @@ def profile_steps(engine, cfg, batch, record):
     torch.profiler, against the steps' median wall time from the serving
     run and the wall time of the same step unprofiled just before (the
     device's idle share: the served walls ran earlier, and the card's
-    clock under a long run of GEMMs may differ between the two)."""
+    clock under a long run of GEMMs may differ between the two). Then the
+    engine's captured decode step: the median wall of ``REPLAYS`` replays
+    from the same cache, with its idle share against the eager step's
+    device busy, and the replay's own device busy."""
     import torch
     from repro_torch import models
     from repro_torch.models import CallOpts
@@ -1255,6 +1308,7 @@ def profile_steps(engine, cfg, batch, record):
     L = toks.shape[1]
     _, cache = models.prefill(params, cfg, batch, engine.max_seq, opts)
     tok, pos = toks[:, -1:], (cfg.num_visual_tokens or 0) + L
+    busy = {}
     for key, fn in (
             ("prefill", lambda: models.prefill(params, cfg, batch,
                                                engine.max_seq, opts)),
@@ -1266,23 +1320,180 @@ def profile_steps(engine, cfg, batch, record):
         fn()
         torch.cuda.synchronize()
         now = (time.perf_counter() - t) * 1e3
-        busy, top, ops = device_busy_ms(fn)
+        busy[key], top, ops = device_busy_ms(fn)
         # the wall of the served prefills of this length, where there are any
         same = [ms for ms, n in zip(record["prefill"], record["prefill_len"])
                 if n == L]
         wall = statistics.median(same if key == "prefill" and same
                                  else record[key])
-        if busy is None:
+        if busy[key] is None:
             print(f"[profile] {cfg.name} {key}: device time not measured "
                   f"({top})")
             continue
-        print(f"[profile] {cfg.name} {key} step: device busy {busy:.2f} ms "
+        b = busy[key]
+        print(f"[profile] {cfg.name} {key} step: device busy {b:.2f} ms "
               f"of {wall:.2f} ms median served wall (idle share "
-              f"{1 - busy / wall:.3f}) and of {now:.2f} ms wall unprofiled "
-              f"just before (idle share {1 - busy / now:.3f}); top kernels: "
+              f"{1 - b / wall:.3f}) and of {now:.2f} ms wall unprofiled "
+              f"just before (idle share {1 - b / now:.3f}); top kernels: "
               + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top))
         print(f"[profile] {cfg.name} {key} step: top operators by their own "
               f"device time: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in ops))
+
+    # the captured step: the first call copies this cache into the graph's
+    # static cache and replays; each later one replays on the static cache
+    tok, pos = tok.to(torch.int32), torch.tensor(pos, dtype=torch.int32,
+                                                 device=engine.device)
+    step = captured(engine)
+    _, static = step(params, tok, pos, cache)
+    del cache
+    walls = []
+    for _ in range(REPLAYS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(params, tok, pos, static)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    cap = statistics.median(walls)
+    replay_busy, _, _ = device_busy_ms(
+        lambda: step(params, tok, pos, static))
+    eager = busy["decode"]
+    print(f"[profile] {cfg.name} decode step captured: median of "
+          f"{REPLAYS} replays {cap:.2f} ms (min {min(walls):.2f}), idle "
+          f"share {'not measured' if eager is None else f'{1 - eager / cap:.3f}'}"
+          f" against the eager step's device busy {fmt_ms(eager)} "
+          f"({'not measured' if eager is None else f'{cap / eager:.2f}x'});"
+          f" a replay's own device busy {fmt_ms(replay_busy)}")
+
+
+def captured(engine):
+    """The engine's captured decode step (``CapturedDecode``), under the
+    smoke's wrappers that time and count its dispatches."""
+    import inspect
+    return inspect.unwrap(engine._decode)
+
+
+def eager_decode(engine):
+    """The plain decode step the engine's captured one was captured from
+    (``compiled_steps``'s shared step): the checks that hold each kernel
+    launch through ``holding`` run it, since a replay runs no Python and
+    no wrapper sees it."""
+    from repro_torch.serving.engine import compiled_steps
+    return compiled_steps(engine.cfg, engine.max_seq, engine.opts)[1]
+
+
+def op_outputs():
+    """A dispatch mode that keeps a copy of each floating output of each op
+    that neither writes in place, makes a tensor from nothing or
+    ``empty``, nor returns a view of an input: ``seen``, [(op, copy)] in
+    order. Under a capture the copies are captured too, and a replay
+    fills them."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpOutputs(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in pytree.tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            name = func.overloadpacket.__name__
+            if ins and not func._schema.is_mutable and "empty" not in name:
+                bases = {t.untyped_storage().data_ptr() for t in ins}
+                for t in pytree.tree_leaves(out):
+                    if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                            and t.untyped_storage().data_ptr() not in bases):
+                        self.seen.append((str(func), t.clone()))
+            return out
+    return OpOutputs()
+
+
+def check_replay(engine, cfg, batch):
+    """The engine's captured decode step against the plain step, with the
+    same token and position on one prefill cache: one eager
+    ``decode_step`` and one replay of the graph the served batches
+    captured (the same kernels in the same order: equal bits expected).
+    Each run writes its ring slot with what it computed from the same
+    inputs and leaves the cache's SSM entries alone (the eager step
+    returns new ones, the replay copies them into the graph's static
+    cache), so every run starts from the same cache, and no copy of it is
+    made. Prints the logits' max abs difference and holds it at
+    SERVE_TOL. Then every op's output of the step, eager against a
+    capture of the same step made under ``op_outputs`` and replayed once:
+    prints how many agree and names the first that differs. Returns the
+    difference."""
+    import torch
+    from repro_torch import models
+    toks = batch["tokens"]
+    B, L = toks.shape
+    graphed = captured(engine)
+    g = graphed.graphs.get(B)
+    if g is None or g.graph is None:
+        raise AssertionError(f"{cfg.name}: no decode step captured at B={B} "
+                             f"by the served batches")
+    _, cache = models.prefill(engine.params, cfg, batch, engine.max_seq,
+                              engine.opts)
+    tok = toks[:, -1:].to(torch.int32)
+    pos = torch.tensor((cfg.num_visual_tokens or 0) + L, dtype=torch.int32,
+                       device=engine.device)
+    step = eager_decode(engine)
+    want = step(engine.params, tok, pos, cache)[0]
+    replays = g.replays
+    got = graphed(engine.params, tok, pos, cache)[0]
+    diff = float((got.float() - want.float()).abs().max())
+    del got, want
+    if g.replays != replays + 1:
+        raise AssertionError(f"{cfg.name}: the captured step was not "
+                             f"replayed ({g.replays - replays} replays)")
+    eager = op_outputs()
+    with eager:
+        step(engine.params, tok, pos, cache)
+    graph, recorded = torch.cuda.CUDAGraph(), op_outputs()
+    with torch.cuda.graph(graph, stream=g.stream):
+        with recorded:
+            step(engine.params, tok, pos, cache)
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = list(zip(eager.seen, recorded.seen))
+    first = next(((i, a[0]) for i, (a, b) in enumerate(pairs)
+                  if a[0] != b[0] or not torch.equal(a[1], b[1])), None)
+    n_same = sum(a[0] == b[0] and torch.equal(a[1], b[1]) for a, b in pairs)
+    if first is not None:
+        where = f"the first that differs is #{first[0]} {first[1]}"
+    elif len(eager.seen) != len(recorded.seen):
+        where = (f"{len(eager.seen)} eager outputs against "
+                 f"{len(recorded.seen)} captured")
+    else:
+        where = "none differs"
+    print(f"[serving] {cfg.name} decode B={B} at position "
+          f"{int(pos)}: one replay of the captured step vs one eager step "
+          f"on one cache, logits max abs diff {diff:.3g} (tol {SERVE_TOL}); "
+          f"op by op, {n_same} of {len(pairs)} outputs equal, {where}")
+    del eager, recorded, graph, pairs, cache
+    if not diff <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name}: replay vs eager decode logits "
+                             f"max abs diff {diff} > {SERVE_TOL}")
+    return diff
+
+
+def served_by_replays(engine, cfg, n_dec):
+    """Holds that every decode dispatch of the served batches went
+    through the engine's captured step: one warm-up (the first dispatch
+    of a batch size, which captures) and replays after it. Prints the
+    counts."""
+    graphs = captured(engine).graphs
+    replays = sum(g.replays for g in graphs.values())
+    print(f"[serving] {cfg.name}: {n_dec} decode dispatches through the "
+          f"captured step: {len(graphs)} captures at B "
+          f"{sorted(graphs)} (the first dispatch of each ran the step as "
+          f"its warm-up, then captured it), {replays} replays")
+    if replays + len(graphs) != n_dec or not replays:
+        raise AssertionError(f"{cfg.name}: {replays} replays and "
+                             f"{len(graphs)} captures for {n_dec} decode "
+                             f"dispatches")
 
 
 def phase_serving(seed):
@@ -1325,10 +1536,14 @@ def phase_serving(seed):
           f"(median of {n_dec}): {statistics.median(record['decode']):.2f}")
     print(f"[serving] torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    served_by_replays(engine, cfg, n_dec)
 
     batch = served_batch(engine, cfg, rng, 8, 512)
     check_prefill_logits(engine, cfg, batch)
+    check_replay(engine, cfg, batch)
     profile_steps(engine, cfg, batch, record)
+    print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
+          f"phase: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 
 
@@ -1393,11 +1608,15 @@ def phase_serving_mamba2(seed):
           f"{statistics.median(record['decode']):.2f}")
     print(f"[serving] torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    served_by_replays(engine, cfg, n_dec)
 
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(8, 512)),
                            device="cuda")
     check_ssm_prefill(engine.params, cfg, toks)
+    check_replay(engine, cfg, {"tokens": toks})
     profile_steps(engine, cfg, {"tokens": toks}, record)
+    print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
+          f"phase: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 
 
@@ -1701,6 +1920,7 @@ def phase_serving_model(seed, index, spec):
             per_step[key].append(tuple(getattr(mod, attr)
                                        for mod, attr in counters))
             return out
+        run.__wrapped__ = fn
         return run
 
     engine._prefill = counted(engine._prefill, "prefill")
@@ -1743,6 +1963,7 @@ def phase_serving_model(seed, index, spec):
           f"{statistics.median(record['decode']):.2f}")
     print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
           f"run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    served_by_replays(engine, cfg, n_dec)
 
     served = served_batch(engine, cfg, rng, spec.batch, longest[0])
     rows = served_batch(engine, cfg, rng, spec.rows, longest[0])
@@ -1757,6 +1978,7 @@ def phase_serving_model(seed, index, spec):
         check_single_group_decode(engine.params, cfg, rows["tokens"],
                                   want["decode"][3])
     check_footprints(engine, cfg, served)
+    check_replay(engine, cfg, served)
     profile_steps(engine, cfg, served, record)
     print(f"[serving] torch.cuda.max_memory_allocated over the {cfg.name} "
           f"phase: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1934,7 +2156,7 @@ def phase_calibrate(seed):
             with holding(cases) as seen:
                 logits, cache = engine._prefill(params, {"tokens": toks})
                 tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-                engine._decode(params, tok, L, cache)
+                eager_decode(engine)(params, tok, L, cache)
             torch.cuda.synchronize()
             for name, runs in seen.items():
                 if not runs:
@@ -2163,7 +2385,7 @@ def phase_autoscale(seed):
                   (da, "decode_attention", ref.decode_attention_ref)]) as seen:
         logits, cache = engine._prefill(engine.params, {"tokens": toks})
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-        engine._decode(engine.params, tok, 8, cache)
+        eager_decode(engine)(engine.params, tok, 8, cache)
     torch.cuda.synchronize()
     want_shapes = {"flash_attention": {((4, 8, 2, 8, 128), (4, 8, 2, 128))},
                    "decode_attention": {((4, 1, 2, 8, 128), (4, 64, 2, 128))}}
@@ -2960,7 +3182,7 @@ def phase_launch(seed):
                   (da, "decode_attention", ref.decode_attention_ref)]) as seen:
         logits, cache = engine._prefill(engine.params, {"tokens": toks})
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-        engine._decode(engine.params, tok, 8, cache)
+        eager_decode(engine)(engine.params, tok, 8, cache)
     torch.cuda.synchronize()
     for name, runs in seen.items():
         worst = max(e for _, e in runs) if runs else float("nan")

@@ -23,7 +23,9 @@ MAX_SPLIT = 8       # blocks of a cluster: the portable cluster size
 MAX_T = 131072      # cache slots (the kernel keeps the mask's bits in shared memory)
 BLOCKS_PER_SM = 1   # blocks an SM the planner aims at
 
-launches = 0  # wrapper calls that launched the kernel (plain runs excluded)
+# wrapper calls that launched the kernel (plain runs excluded), and the
+# kernels a replay of a captured decode step ran (``serving/graphs.py``)
+launches = 0
 
 
 @functools.lru_cache(maxsize=None)

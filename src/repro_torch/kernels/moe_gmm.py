@@ -29,8 +29,9 @@ PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
          (torch.float32, torch.float32))
 ACTS = {"silu": 1, "gelu": 2}  # gelu: the tanh approximation
 
-# kernel launches since the last reset (plain runs excluded): of gmm, and
-# of gmm_gated
+# kernel launches since the last reset (plain runs excluded; a replay of
+# a captured decode step adds the ones it ran, ``serving/graphs.py``): of
+# gmm, and of gmm_gated
 launches = 0
 gated_launches = 0
 

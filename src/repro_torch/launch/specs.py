@@ -185,20 +185,17 @@ def build_case(cfg: ArchConfig, shape: ShapeConfig, mesh,
         cache = models.init_cache(cfg, B, kv_len,
                                   getattr(torch, opts.cache_dtype), device)
         tokens = torch.empty((B, 1), dtype=torch.int32, device=device)
-        # the reference's pos is a traced 0-d int32; the port's steps take
-        # a Python int, the position of a full ring
-        pos = kv_len - 1
-        step = steps.make_decode_step(cfg, opts)
-
-        def fn(params, tokens, cache, _step=step, _pos=pos):
-            return _step(params, tokens, _pos, cache)
-        args = (p_struct, tokens, cache)
+        # a 0-d int32 argument, replicated, as the reference's traced pos:
+        # the position of a full ring
+        pos = torch.full((), kv_len - 1, dtype=torch.int32, device=device)
+        fn = steps.make_decode_step(cfg, opts)
+        args = (p_struct, tokens, pos, cache)
         long_ctx = B == 1
         cache_spec = sh.cache_specs(cache, mesh, long_context=long_ctx,
                                     cfg=cfg)
         in_specs = (p_spec, sh.batch_specs({"tokens": tokens}, mesh)["tokens"],
-                    cache_spec)
-        donate = (2,)
+                    sh.Spec(), cache_spec)
+        donate = (3,)
     hints = _scan_hints(cfg, shape)
     if shape.kind == "train":
         hints["microbatches"] = microbatches

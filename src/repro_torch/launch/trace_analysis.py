@@ -24,7 +24,9 @@ one device would run. All numbers are PER DEVICE:
                         all_to_all_single, and DTensor's shard_dim_alltoall
                         counted as one all-to-all before any fallback);
   * hbm_bytes        -- operand plus output bytes of each op that is not a
-                        view. This is an UNFUSED upper bound: the reference
+                        view (of the rows moved, for a row gather or an
+                        in-place row scatter: ``_ROW_TRAFFIC``). This is an
+                        UNFUSED upper bound: the reference
                         counts post-fusion instructions, where an elementwise
                         chain reads and writes HBM once;
   * peak_bytes       -- the most bytes the step's own tensors held at once
@@ -73,6 +75,15 @@ _COLLECTIVES = {
     "broadcast": "collective-broadcast",
 }
 _NO_TRAFFIC = {"wait_tensor", "_unsafe_view", "detach", "lift_fresh"}
+# ops that move a few rows of a large tensor: (the index's and the rows'
+# bytes), counted as a copy into a slice view or out of one is, and as
+# XLA counts a dynamic-(update-)slice, not as the whole tensor
+_ROW_TRAFFIC = {
+    "index_select": lambda args, outs: (_nbytes(args[2])
+                                        + 2 * _nbytes(outs[0])),
+    "index_copy_": lambda args, outs: (_nbytes(args[2])
+                                       + 3 * _nbytes(args[3])),
+}
 # a full collection every this many allocations: a backward's reference
 # cycles (checkpoint frames, autograd nodes) keep dead tensors until one
 # runs, which would count them live at a point the program has freed them
@@ -222,7 +233,10 @@ class Tracer(TorchDispatchMode):
         if func.overloadpacket in FLOP_FORMULAS:
             a.flops += FLOP_FORMULAS[func.overloadpacket](*args, **kwargs,
                                                           out_val=out)
-        a.hbm_bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        if name in _ROW_TRAFFIC:
+            a.hbm_bytes += _ROW_TRAFFIC[name](args, outs)
+        else:
+            a.hbm_bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         aliased = [r.alias_info is not None for r in func._schema.returns]
         for t, alias in zip(outs, aliased + [False] * len(outs)):
             if not alias:

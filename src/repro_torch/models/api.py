@@ -8,6 +8,9 @@
 
 ``batch`` is a dict: {"tokens": (B,S)} plus, per family,
 {"frame_embeds": (B,T_enc,d)} (audio) or {"visual_embeds": (B,V,d)} (vlm).
+A decode step's ``pos`` is a 0-d int32 tensor, as the reference's traced
+scalar, or a Python int, which the family's ``decode_step`` turns into
+one on the tokens' device at its entry.
 """
 from __future__ import annotations
 

@@ -226,31 +226,33 @@ def encode_kv(cfg, p, enc_out):
 
 
 # ------------------------------------------------------------------ decode
-def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
+def decode_self_attention(cfg, p, x, cache_k, cache_v, pos, *, window=0,
                           use_kernels=False):
     """One-token decode. x: (B,1,d); cache_k/v: (B,T,K,hd) ring buffers.
 
-    ``pos`` is the absolute position of the new token (a Python int). Keys
-    are stored rope-applied at absolute positions, so ring-buffer reuse is
+    ``pos`` is the absolute position of the new token, a 0-d int32 tensor
+    on x's device (the reference's traced scalar; a direct caller's int is
+    taken as one): nothing here reads it on the host, so one captured
+    step serves every position. Keys are
+    stored rope-applied at absolute positions, so ring-buffer reuse is
     correct without rope recomputation. The new K/V go into slot
     ``pos % T`` in place. Returns (out, cache_k, cache_v).
     """
     a = dims_of(cfg)
     B = x.shape[0]
     T = cache_k.shape[1]
-    pos = int(pos)
+    pos = common.position(pos, x)
     q, k, v = project_qkv(cfg, p, x)  # (B,1,H,hd), (B,1,K,hd)
     if cfg.pos_emb == "rope":
-        ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        ppos = pos.view(1)
         q = common.apply_rope(q, ppos, cfg.rope_theta)
         k = common.apply_rope(k, ppos, cfg.rope_theta)
     slot = pos % T
     cache_k = sharding.write_slot(cache_k, slot, k[:, 0].to(cache_k.dtype))
     cache_v = sharding.write_slot(cache_v, slot, v[:, 0].to(cache_v.dtype))
-    if pos >= T:
-        valid = torch.ones((T,), dtype=torch.bool, device=x.device)
-    else:
-        valid = torch.arange(T, device=x.device) <= pos
+    # the reference's where(pos >= T, all, idx <= pos): past a full ring
+    # every idx < T <= pos, so idx <= pos alone is that mask
+    valid = torch.arange(T, device=x.device) <= pos
     # quantized caches (e.g. fp8) are converted after the read
     kr = cache_k if cache_k.dtype == x.dtype else cache_k.to(x.dtype)
     vr = cache_v if cache_v.dtype == x.dtype else cache_v.to(x.dtype)

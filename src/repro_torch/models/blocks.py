@@ -174,8 +174,8 @@ def apply_block_full(cfg, kind, p, h, positions, opts: CallOpts,
 
 def apply_block_decode(cfg, kind, p, h, cache_entry, pos, opts: CallOpts):
     """One-token decode block. Returns (h, cache_entry): an attention entry
-    is updated in place, an SSM entry is replaced. ``pos`` is ignored by
-    SSM blocks."""
+    is updated in place, an SSM entry is replaced. ``pos`` (a 0-d int32
+    tensor) is ignored by SSM blocks."""
     mixer, f, _ = kind
     p = sharding.gather_fsdp(p, like=h)
     hn = common.apply_norm(cfg, p["ln1"], h)

@@ -117,6 +117,13 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def position(pos, like):
+    """A decode step's absolute position as the reference passes it: a
+    0-d int32 tensor, here on ``like``'s device. A Python int is converted
+    (the one place it is); a tensor there already is taken as it is."""
+    return torch.as_tensor(pos, dtype=torch.int32, device=like.device)
+
+
 # ---------------------------------------------------------------- misc
 def causal_mask_bias(q_pos, k_pos, window: int = 0):
     """Additive bias (0 / -inf) for causal (+ optional sliding window) masking.

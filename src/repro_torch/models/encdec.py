@@ -188,13 +188,17 @@ def prefill(params, cfg, tokens, frame_embeds, kv_len: int,
                                       "cross": (ck, cv)}
 
 
-def decode_step(params, cfg, tokens, pos: int, cache,
+def decode_step(params, cfg, tokens, pos, cache,
                 opts: CallOpts = CallOpts()):
-    """One decoder token. tokens: (B, 1); pos: absolute position (int),
-    clamped to the learned table for the position row. Returns (logits
-    (B,1,V), cache); the self-attention ring is updated in place."""
+    """One decoder token. tokens: (B, 1); pos: the absolute position, a
+    0-d int32 tensor or a Python int (taken as one here, on the tokens'
+    device), clamped to the learned table for the position row. Returns
+    (logits (B,1,V), cache); the self-attention ring is updated in
+    place."""
+    pos = common.position(pos, tokens)
     params = sharding.gather_fsdp(params, skip=("encoder", "decoder"))
-    row = params["pos_dec"][min(int(pos), cfg.max_learned_pos - 1)]
+    row = params["pos_dec"].index_select(
+        0, pos.clamp(max=cfg.max_learned_pos - 1).view(1))
     h = (sharding.embed(params["embed"], tokens.long())
          + row.to(common.dtype_of(cfg)))
     sk, sv = cache["self"]["k"], cache["self"]["v"]

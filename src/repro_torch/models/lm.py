@@ -127,18 +127,22 @@ def prefill(params, cfg, tokens, kv_len: int, *, visual_embeds=None,
     return _unembed(cfg, params, h, opts), cache
 
 
-def decode_step(params, cfg, tokens, pos: int, cache, *,
+def decode_step(params, cfg, tokens, pos, cache, *,
                 opts: CallOpts = CallOpts()):
-    """One decode step. tokens: (B, 1); pos: absolute position (int).
+    """One decode step. tokens: (B, 1); pos: the absolute position, a 0-d
+    int32 tensor or a Python int (taken as one here, on the tokens'
+    device).
 
     Returns (logits (B,1,V), cache); the cache is updated in place.
     """
+    pos = common.position(pos, tokens)
     params = sharding.gather_fsdp(params, skip=("layers",), like=tokens)
     h = sharding.embed(params["embed"], tokens.long())
     if cfg.name.startswith("gemma"):
         h = (h.float() * float(cfg.d_model) ** 0.5).to(h.dtype)
     if cfg.pos_emb == "learned":
-        h = h + params["pos"][min(int(pos), cfg.max_learned_pos - 1)]
+        h = h + params["pos"].index_select(
+            0, pos.clamp(max=cfg.max_learned_pos - 1).view(1))
     h, new_cache = blocks.decode_stack(cfg, params["layers"], h, pos, cache,
                                        opts)
     h = common.apply_norm(cfg, params["ln_f"], h)

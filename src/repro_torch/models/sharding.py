@@ -300,15 +300,18 @@ def repeat_kv(q, k, v, groups: int):
     return q, k, v, 1
 
 
-def write_slot(cache, slot: int, value):
+def write_slot(cache, slot, value):
     """``cache[:, slot] = value`` for a cache (B, T, K, hd) and a value
-    (B, K, hd), in place. A DTensor cache sharded along T is written on
-    its shards (``local_map``): the device holding ``slot`` writes it,
-    where DTensor would gather the cache to select one slot (XLA's
+    (B, K, hd), in place; ``slot`` is a 0-d integer tensor (an int is
+    taken as one), never read on the host, so a captured decode step
+    writes where the replay's position says. A DTensor cache is written
+    on its shards (``local_map``): where T is sharded, the device that
+    holds the slot writes it and every other one writes back a row it
+    read, where DTensor would gather the cache to select one slot (XLA's
     dynamic-update-slice touches the owning shard only)."""
-    if not is_dtensor(cache) or not _mesh_dims(cache, 1):
-        cache[:, slot] = value
-        return cache
+    slot = torch.as_tensor(slot, device=cache.device).long().view(1)
+    if not is_dtensor(cache):
+        return cache.index_copy_(1, slot, value.unsqueeze(1))
     from torch.distributed.tensor import Replicate, Shard
     mesh = cache.device_mesh
     first = _block(mesh, _mesh_dims(cache, 1))
@@ -316,13 +319,17 @@ def write_slot(cache, slot: int, value):
     v_place = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else
                p if p.is_shard(0) else Replicate() for p in place]
 
-    def local(c, v):
-        i = slot - first * c.shape[1]
-        if 0 <= i < c.shape[1]:
-            c[:, i] = v
-        return c
-    return _local_map(local, place, (place, v_place),
-                      (cache, _as_dtensor(value, mesh, v_place)))
+    rep = [Replicate()] * mesh.ndim
+
+    def local(c, v, s):
+        i = s - first * c.shape[1]
+        j = i.clamp(0, c.shape[1] - 1)
+        mine = (i == j).view(1, 1, 1, 1)
+        return c.index_copy_(1, j, torch.where(mine, v.unsqueeze(1),
+                                               c.index_select(1, j)))
+    return _local_map(local, place, (place, v_place, rep),
+                      (cache, _as_dtensor(value, mesh, v_place),
+                       _as_dtensor(slot, mesh, rep)))
 
 
 def _as_dtensor(t, mesh, place):

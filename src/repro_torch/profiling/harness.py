@@ -236,7 +236,10 @@ def _measure_engine(cfg, params, gpu, batch: int, sm: int, quota: float,
                     device: torch.device) -> Dict[str, float]:
     """Measure the requested phases of one (batch, sm, quota) pod via
     the port's ``PodEngine`` dispatch path (libhas token acquire + step
-    + ``torch.cuda.synchronize``). Returns phase -> measured seconds."""
+    + ``torch.cuda.synchronize``). On the card the decode dispatch is the
+    replay of the engine's captured step; its capture falls in the
+    warm-up calls, as the reference's jit compile does. Returns phase ->
+    measured seconds."""
     vgpu = VirtualGPU(f"GPU-prof-{uid}", window_ms=window_ms,
                       gpu_type=gpu)
     pod = PodAlloc(fn_id=f"prof-{cfg.name}", sm=sm, quota=quota,
@@ -264,12 +267,17 @@ def _measure_engine(cfg, params, gpu, batch: int, sm: int, quota: float,
     if "decode" in phases:
         logits, cache = prefill_once()
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-        # the port's decode step takes its position on the host
-        pos = (cfg.num_visual_tokens or 0) + L
+        # the position on the device, as the engine passes it
+        pos = torch.tensor((cfg.num_visual_tokens or 0) + L,
+                           dtype=torch.int32, device=device)
 
         def decode_once():
-            engine.libhas.launch(engine._decode, engine.params, tok, pos,
-                                 cache, cost_s=engine._cost(batch))
+            # the returned cache back in, as the engine's loop does (a
+            # captured step's static cache: nothing is copied into it)
+            nonlocal cache
+            _, cache = engine.libhas.launch(
+                engine._decode, engine.params, tok, pos, cache,
+                cost_s=engine._cost(batch))
             _sync(device)
 
         out["decode"] = _time_launch(decode_once, warmup, iters)

@@ -4,7 +4,10 @@ One ``PodEngine`` is a function instance: prefill + decode steps for its
 architecture, a batcher, and a libhas shim that acquires time tokens
 sized by the pod's (sm, quota) before every dispatch. It runs on
 ``cuda`` unless the caller passes ``device="cpu"``, and by default sends
-attention through the CUDA kernels (``CallOpts(use_kernels=True)``).
+attention through the CUDA kernels (``CallOpts(use_kernels=True)``). On
+the card its decode dispatch replays the step captured as a CUDA graph
+for the batch size (``serving/graphs.py``), as the reference's engine
+calls its jitted step; on the CPU it runs the plain step.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.core.vgpu import PodAlloc, VirtualGPU
 from repro_torch.device import resolve_device
 from repro_torch.models import CallOpts
 from repro_torch.serving.batcher import Batcher, InferenceRequest
+from repro_torch.serving.graphs import CapturedDecode
 from repro_torch.serving.libhas import LibHas
 from repro_torch.training import steps
 
@@ -32,9 +36,10 @@ from repro_torch.training import steps
 def compiled_steps(cfg: ArchConfig, max_seq: int, opts: CallOpts) -> tuple:
     """Shared ``(prefill, decode)`` step functions for one architecture.
 
-    Plain functions (nothing is compiled); kept as a cache keyed on
-    ``(cfg, max_seq, opts)`` so that every pod of a function shares one
-    pair, as the JAX engine's pods share one jit cache."""
+    Plain functions, kept as a cache keyed on ``(cfg, max_seq, opts)`` so
+    that every pod of a function shares one pair, as the JAX engine's pods
+    share one jit cache. The captured decode graphs are not shared: each
+    bakes in its engine's params (``PodEngine``)."""
     return (steps.make_prefill_step(cfg, max_seq, opts),
             steps.make_decode_step(cfg, opts))
 
@@ -57,6 +62,8 @@ class PodEngine:
         self.libhas = LibHas(client=client)
         self.batcher = Batcher(max_batch=pod.batch, pad_id=pad_id)
         self._prefill, self._decode = compiled_steps(cfg, max_seq, opts)
+        if self.device.type == "cuda":
+            self._decode = CapturedDecode(self._decode, self.params)
         self.completed: List[InferenceRequest] = []
 
     # cost of one dispatch in *owned accelerator seconds* for this pod,
@@ -91,7 +98,8 @@ class PodEngine:
         Prompts are left-padded and unmasked (the pad tokens are attended
         to), exactly as in the reference engine; decoding is greedy. A
         VLM's text follows its visual prefix, so decode starts at position
-        V + L."""
+        V + L. Each step's position is a 0-d int32 tensor on the device, as
+        the reference passes ``jnp.asarray(v + L + i, jnp.int32)``."""
         if not self.batcher.ready():
             return []
         reqs = self.batcher.next_batch()
@@ -105,11 +113,13 @@ class PodEngine:
             self._prefill, self.params, batch, cost_s=self._cost(B * L))
         n_new = max(r.max_new_tokens for r in reqs)
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        positions = torch.arange(v + L, v + L + n_new, dtype=torch.int32,
+                                 device=self.device)
         toks = []
         for i in range(n_new):
             toks.append(tok)
             logits, cache = self.libhas.launch(
-                self._decode, self.params, tok, v + L + i, cache,
+                self._decode, self.params, tok, positions[i], cache,
                 cost_s=self._cost(B))
             tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
         outs = torch.cat(toks, dim=1).cpu().numpy().astype(np.int32)

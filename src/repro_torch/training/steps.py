@@ -1,8 +1,9 @@
 """Loss and train/serve step functions.
 
 Counterparts of the JAX package's ``training/steps.py``: plain functions
-(PyTorch runs eagerly; nothing is compiled). ``make_prefill_step`` and
-``make_decode_step`` are the units ``PodEngine`` dispatches;
+(PyTorch runs eagerly; on the card ``PodEngine`` captures the decode step
+as a CUDA graph). ``make_prefill_step`` and ``make_decode_step`` are the
+units ``PodEngine`` dispatches;
 ``make_train_step`` takes one AdamW step on the plain path.
 """
 from __future__ import annotations
@@ -135,6 +136,10 @@ def make_prefill_step(cfg, kv_len: int, opts: CallOpts = CallOpts()):
 
 
 def make_decode_step(cfg, opts: CallOpts = CallOpts()):
+    """``decode_step(params, tokens, pos, cache)``; ``pos`` a 0-d int32
+    tensor or a Python int (``models.decode_step``). On the card
+    ``PodEngine`` replays it as a captured CUDA graph
+    (``serving/graphs.py``)."""
     def decode_step(params, tokens, pos, cache):
         return models.decode_step(params, cfg, tokens, pos, cache, opts=opts)
     return decode_step

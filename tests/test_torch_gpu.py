@@ -1117,3 +1117,134 @@ def test_serve_launcher_on_card(cuda):
     assert run.cfg.num_layers == 2 and len(run.requests) == 4
     assert all(len(r.output) == 8 for r in run.requests)
     assert (tfa.launches - before[0], tda.launches - before[1]) == (2, 16)
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ("qwen2.5-3b", "mamba2-2.7b", "deepseek-moe-16b",
+               "jamba-v0.1-52b", "dbrx-132b", "llava-next-34b",
+               "whisper-medium")
+
+
+def _graph_engine(arch, batch=3, uid=""):
+    """A PodEngine of reduced bf16 ``arch`` on the card (random weights)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.gpus import get_gpu_type
+    from repro_torch.core.scheduler import HASGPUScheduler
+    from repro_torch.core.vgpu import PodAlloc, VirtualGPU
+    from repro_torch.serving import PodEngine
+    cfg = reduced(ARCHS[arch])
+    vgpu = VirtualGPU(f"GPU-graph-{arch}{uid}", gpu_type=get_gpu_type("h100"))
+    pod = PodAlloc(fn_id="f", sm=8, quota=1.0, batch=batch)
+    vgpu.place(pod)
+    eng = PodEngine(cfg, pod, vgpu, HASGPUScheduler(), max_seq=64, seed=2)
+    eng.batcher.max_wait_s = 0.0
+    return cfg, eng
+
+
+def _serve(eng, cfg, lengths, new=4, seed=0):
+    from repro_torch.serving import InferenceRequest
+    rng = np.random.default_rng(seed)
+    for n in lengths:
+        eng.submit(InferenceRequest(
+            prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=new))
+    done = eng.step()
+    assert [len(r.output) for r in done] == [new] * len(lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_captured_decode_replay_equals_eager_on_card(cuda, arch):
+    """Reduced ``arch`` served on the card through its captured decode
+    step; then, from copies of one prefill cache with the same token and
+    position, one replay and one eager step: their logits and the caches
+    they leave agree within 3e-2 (the same kernels in the same order:
+    equal bits expected)."""
+    from repro_torch import models
+    from repro_torch.serving.engine import compiled_steps
+    from repro_torch.serving.graphs import _clone, _leaves
+    cfg, eng = _graph_engine(arch)
+    _serve(eng, cfg, (5, 17, 30))
+    g = eng._decode.graphs[3]
+    assert g.replays == 3            # 4 tokens: the warm-up, then replays
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (3, 12),
+                                     generator=gen, device=cuda)}
+    for key, x in eng._extra_inputs(3).items():
+        batch[key] = (torch.randn(x.shape, generator=gen, device=cuda)
+                      * 0.02).to(x.dtype)
+    _, cache = models.prefill(eng.params, cfg, batch, 64, eng.opts)
+    tok = batch["tokens"][:, -1:].to(torch.int32)
+    pos = torch.tensor((cfg.num_visual_tokens or 0) + 12, dtype=torch.int32,
+                       device=cuda)
+    step = compiled_steps(cfg, 64, eng.opts)[1]
+    want, want_cache = step(eng.params, tok, pos, _clone(cache))
+    got, got_cache = eng._decode(eng.params, tok, pos, cache)
+    torch.cuda.synchronize()
+    assert g.replays == 4 and got_cache is g.cache
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= 3e-2
+    for a, b in zip(_leaves(got_cache), _leaves(want_cache)):
+        assert rel_err(a, b) <= 3e-2
+
+
+@pytest.mark.gpu
+def test_one_captured_step_for_each_engine_and_batch_size(cuda):
+    """Two engines of one function (each its own weights): each captures
+    one graph for each batch size it serves, over the shared plain step;
+    neither's graph is the other's."""
+    cfg, a = _graph_engine("qwen2.5-3b", uid="-a")
+    _, b = _graph_engine("qwen2.5-3b", uid="-b")
+    for eng in (a, b):
+        _serve(eng, cfg, (5, 9, 3))
+        _serve(eng, cfg, (4, 6))
+        _serve(eng, cfg, (7, 2, 8))
+    assert sorted(a._decode.graphs) == sorted(b._decode.graphs) == [2, 3]
+    assert a._decode.step is b._decode.step
+    assert a._decode.graphs[3] is not b._decode.graphs[3]
+    assert a._decode.graphs[3].graph is not None
+    # B 3: the first batch's 3 replays after its warm-up, the third's 4
+    assert a._decode.graphs[3].replays == 3 + 4 and \
+        a._decode.graphs[2].replays == 3
+
+
+@pytest.mark.gpu
+def test_captured_step_refuses_other_params(cuda):
+    """A replay with params other than the engine's raises; nothing runs
+    the step eagerly instead."""
+    from repro_torch import models
+    cfg, eng = _graph_engine("qwen2.5-3b")
+    _serve(eng, cfg, (5, 9, 3))
+    other = models.init_params(cfg, seed=9, device=cuda)
+    _, cache = models.prefill(eng.params, cfg, {"tokens": torch.ones(
+        (3, 4), dtype=torch.int64, device=cuda)}, 64, eng.opts)
+    tok = torch.ones((3, 1), dtype=torch.int32, device=cuda)
+    replays = eng._decode.graphs[3].replays
+    with pytest.raises(ValueError, match="params"):
+        eng._decode(other, tok, torch.tensor(4, dtype=torch.int32,
+                                            device=cuda), cache)
+    assert eng._decode.graphs[3].replays == replays
+
+
+@pytest.mark.gpu
+def test_replays_count_their_launches(cuda):
+    """Reduced jamba (attention, SSD and MoE layers): the warm-up counts
+    its launches, the capture none, and each replay the kernels it
+    replays: decode attention once an attention layer, the gmm pair once
+    each a MoE layer."""
+    from repro_torch.models import blocks
+    cfg, eng = _graph_engine("jamba-v0.1-52b")
+    kinds = blocks.layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _, _ in kinds)
+    n_moe = sum(f == "moe" for _, f, _ in kinds)
+    before = (tda.launches, tmg.launches, tmg.gated_launches)
+    _serve(eng, cfg, (5, 9, 3), new=6)
+    torch.cuda.synchronize()
+    got = (tda.launches - before[0], tmg.launches - before[1],
+           tmg.gated_launches - before[2])
+    assert eng._decode.graphs[3].recorded == [0, n_attn, 0, n_moe, n_moe]
+    # one prefill (gmm only in MoE layers) and six decode dispatches
+    assert got == (6 * n_attn, 7 * n_moe, 7 * n_moe)

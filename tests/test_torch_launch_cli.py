@@ -81,9 +81,8 @@ def test_production_mesh_plan_equals_the_reference(mesh, tmp_path):
     """olmo-1b ``decode_32k`` (``tests/test_dryrun.py``'s combo) planned by
     ``python -m repro_torch.launch.dryrun`` and by ``python -m
     repro.launch.dryrun`` (XLA's post-SPMD HLO on 512 fake CPU devices),
-    each in its own process: the same FLOPs a device, exactly, and the
-    same argument bytes but the reference's traced ``pos`` scalar (an
-    int32 the port passes as a Python int)."""
+    each in its own process: the same FLOPs a device and the same
+    argument bytes, exactly (both pass ``pos`` as a 0-d int32)."""
     only = "--single-pod-only" if mesh == "16x16" else "--multi-pod-only"
     recs = {}
     for pkg in ("repro_torch", "repro"):
@@ -101,7 +100,7 @@ def test_production_mesh_plan_equals_the_reference(mesh, tmp_path):
     assert (port["hlo_analysis_per_device"]["flops"]
             == ref["hlo_analysis_per_device"]["flops"] > 0)
     assert (port["memory"]["argument_bytes_per_device"]
-            == ref["memory"]["argument_bytes_per_device"] - 4)
+            == ref["memory"]["argument_bytes_per_device"])
 
 
 def test_serve_tokens_equal_a_direct_engine_run():

@@ -87,7 +87,8 @@ def test_host_mesh_case_is_plain():
     leaves = torch.utils._pytree.tree_leaves(case.args)
     assert specs.argument_bytes(case, mesh) == sum(
         t.numel() * t.element_size() for t in leaves)
-    assert case.step_name == "decode_step" and case.donate_argnums == (2,)
+    assert case.step_name == "decode_step" and case.donate_argnums == (3,)
+    assert case.args[2].shape == () and case.args[2].dtype == torch.int32
 
 
 def fp8_cases(arch):
